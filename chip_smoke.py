@@ -7,9 +7,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
 
 1. device: require CUDA; print the card's name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them;
-2. build both CUDA kernels from ``sat_tpu_torch/csrc`` (all nvcc processes at
+2. build both CUDA sources from ``sat_tpu_torch/csrc`` (all nvcc processes at
    once) and print the build time and, for what it compiled, each kernel
-   instance's registers and spills (``nvcc -Xptxas=-v``);
+   instance's registers and spills (``nvcc -Xptxas=-v``; a spill in a loop
+   phase kernel fails the run), and the loop kernels' launch plan at B = 64
+   (``[design]``: each phase's grid, threads and shared memory);
 3. hold each kernel against its plain PyTorch version on the card, float32,
    n64 weights, B = 64, at the shapes of the main path, then at other shapes
    that take the kernels' other code paths;
@@ -21,7 +23,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
 6. times, with CUDA events after a warm-up, the median of several runs: each
    kernel and its plain version per call (the ``kernels`` line), and greedy
    captioning end to end (encode + decode, images/s); beside them the busy
-   device time per call from torch.profiler.
+   device time per call from torch.profiler, and each loop phase's busy
+   time per decode.
 
 The last three lines of standard output are ``[report]`` with every number
 of the run as JSON, the ``kernels`` JSON line and
@@ -139,18 +142,24 @@ def device_ms(fn, name=None, calls=10):
 
 
 def ptxas_summary(log):
-    """One line per kernel instance of an ``nvcc -Xptxas=-v`` log: its type
-    (the template argument), registers and spills."""
-    out, inst, spill = [], "?", ""
+    """One (kernel, type, registers, spill line) per kernel instance of an
+    ``nvcc -Xptxas=-v`` log; the type is the template argument."""
+    out, inst, spill = [], ("?", "?"), ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"_kernelI(f|13__nv_bfloat16)E", line)
-            inst = ("f32" if m.group(1) == "f" else "bf16") if m else "?"
+            m = re.search(r"_ZN3sat\d+(\w+?)I(f|13__nv_bfloat16)E", line)
+            inst = (m.group(1), "f32" if m.group(2) == "f" else "bf16") if m else ("?", "?")
         elif "spill" in line:
             spill = line.strip()
         elif "Used" in line:
-            out.append(f"{inst}: {line.split(':', 1)[1].strip()}; {spill}")
+            out.append((*inst, line.split(":", 1)[1].strip(), spill))
     return out
+
+
+def spilled(spill_line):
+    """Whether a ptxas ``... bytes spill stores, ... bytes spill loads`` line
+    reports a spill."""
+    return any(int(n) for n in re.findall(r"(\d+) bytes spill", spill_line))
 
 
 def check(ok, what):
@@ -210,8 +219,10 @@ def main():
     # -- 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
     for k, log in _build.build().items():
-        for line in ptxas_summary(log):
-            print(f"[ptxas] {k} {line}")
+        for kern, typ, regs, spill in ptxas_summary(log):
+            print(f"[ptxas] {k} {kern} {typ}: {regs}; {spill}")
+            check(not (kern.startswith("greedy_loop_") and spilled(spill)),
+                  f"{kern} {typ} spills")
     for name in _build.SOURCES:
         _build.load(name)
     report["build_s"] = time.perf_counter() - t0
@@ -228,6 +239,14 @@ def main():
     h0, c0 = TD.init_lstm_state(params, annots, cfg)
     h0, c0 = h0[0].contiguous(), c0[0].contiguous()
     fw = KS.pack_fused_weights(params, cfg, torch.float32)
+    H, E, A, V = cfg.decoder_dim, cfg.embed_dim, cfg.attention_dim, cfg.vocab_size
+    plan = KL.loop_plan(B, L, D, A, H, E, V)
+    report["loop_plan"] = plan
+    print(f"[design] greedy loop phases, f32 B={B}: " + "; ".join(
+        f"{k} grid {g} x {n} threads, smem {dyn} B dynamic + {st} B static"
+        for k, (g, n, dyn, st) in plan.items()), flush=True)
+    for k in ("hside", "gates", "deepout"):
+        check(plan[k][0][0] * plan[k][0][1] * plan[k][0][2] >= 64, f"{k} fills 64 blocks")
     ids = torch.from_numpy(np.random.default_rng(1).integers(
         1, cfg.vocab_size, size=B)).to(dev)
     e = TD.embed_tokens(params, ids, cfg).contiguous()
@@ -355,11 +374,11 @@ def main():
                          "decoder_step_kernel"),
         "decoder_step_plain": (lambda: KS.fused_decoder_step_plain(*step_args), 20, None),
         "greedy_loop": (lambda: KL.greedy_loop(*loop_args, max_gen_length=S), 1,
-                        "greedy_loop_kernel"),
+                        "greedy_loop_"),
         "greedy_loop_plain": (lambda: KL.greedy_loop_plain(*loop_args, max_gen_length=S),
                               1, None),
         "greedy_loop_bf16": (lambda: KL.greedy_loop(*la16, max_gen_length=S), 1,
-                             "greedy_loop_kernel"),
+                             "greedy_loop_"),
     }
     for label, mm in (("", model), ("_bf16", m16)):
         calls["encode" + label] = (lambda mm=mm: mm.encode(imgs), 1, None)
@@ -376,6 +395,13 @@ def main():
     print("[time] busy device time per call, torch.profiler: "
           + ", ".join(f"{k} {'not measured' if v is None else f'{v:.3f} ms'}"
                       for k, v in busy.items()), flush=True)
+    phase_busy = {f"{ph}{label}": device_ms(calls["greedy_loop" + label][0], "greedy_loop_" + ph)
+                  for label in ("", "_bf16") for ph in KL.PHASES}
+    batch_steps = int(torch.where(kl[4], kl[3] + 1, S + 1).max())
+    print(f"[time] loop phases ({batch_steps} of {S + 1} steps run before every row "
+          "finished), busy device time per decode, torch.profiler: "
+          + ", ".join(f"{k} {'not measured' if v is None else f'{v:.3f} ms'}"
+                      for k, v in phase_busy.items()), flush=True)
     e2e = {}
     for k in ms:
         if k.startswith("captioning_"):
@@ -387,11 +413,10 @@ def main():
                   f"{'not measured' if idle is None else f'{idle:.1%}'}", flush=True)
 
     # bounds: inputs read once, outputs written once; operations of this run
-    H, E, A, V = cfg.decoder_dim, cfg.embed_dim, cfg.attention_dim, cfg.vocab_size
     step_bytes = nbytes(e, h0, c0, annots, att_enc, *fw, *got)
     step_bound, step_by = bound(step_bytes, B * step_flops(L, D, A, H, E), f32)
     steps_run = torch.where(kl[4], kl[3] + 1, S + 1).sum().item()
-    loop_bytes = nbytes(annots, att_enc, h0, c0, *lw[0], *lw[1:], *kl)
+    loop_bytes = nbytes(annots, att_enc, h0, c0, *fw, *lw[1:], *kl)
     loop_ops = steps_run * (step_flops(L, D, A, H, E) + 2 * E * V)
     loop_bound, loop_by = bound(loop_bytes, loop_ops, f32)
 
@@ -410,7 +435,9 @@ def main():
          "bound_ms": loop_bound, "bound_by": loop_by, "library_ms": None},
     ]
     report.update(kernels=kernels, step_err=step_err, loop_agreement=rate,
-                  main_agreement=agree, bf16=bf16, e2e=e2e, call_ms=ms, busy_ms=busy, loop_rows_steps=steps_run,
+                  main_agreement=agree, bf16=bf16, e2e=e2e, call_ms=ms, busy_ms=busy,
+                  loop_phase_busy_ms=phase_busy, loop_batch_steps=batch_steps,
+                  loop_rows_steps=steps_run,
                   captions=words[:8], finished=n_done, batch=B, max_gen_length=S)
     print("[report] " + json.dumps(report))
     print(json.dumps({"kernels": kernels}))

@@ -1,19 +1,20 @@
-// Shared device code of the two decode kernels (decoder_step.cu,
-// greedy_loop.cu): the shared-memory layout of a row and one decode step
-// (attention, beta gate, LSTM cell, deep-output pre-projection) for it.
+// Device code of the step kernel (decoder_step.cu): the shared-memory layout
+// of a row and one decode step (attention, beta gate, LSTM cell, deep-output
+// pre-projection) for it.  The loop kernels (greedy_loop.cu) use only its
+// helpers: loads and conversions, warp reductions and gemv.
 //
 // Design.  One block of NT threads owns one row.  The row's state (h, c, the
 // embedding, the context, the gates) lives in shared memory as float for the
-// whole step, and for the whole decode in the loop kernel.  Weights are read
-// from global memory, where the n64 set (18 MB in f32) stays in the 50 MB L2.
-// Matrix-vector products give each thread VEC adjacent output columns
-// (16-byte loads: 4 floats or 8 bf16) and split K across thread groups when a
-// matrix has too few columns to occupy the block.  Each thread keeps 16 loads
-// in flight (64 registers of data in f32), so the kernels are declared
-// __launch_bounds__(NT, 1): one block per SM is enough, which frees ptxas to
-// use 108-160 registers.  With __launch_bounds__(NT) alone it chose an
-// occupancy target of 40-64 registers, spilled, and both kernels ran about
-// 4x slower (measured at n64 on an H100, PERF.md).  Accumulation, softmax
+// whole step.  Weights are read from global memory, where the n64 set (18 MB
+// in f32) stays in the 50 MB L2.  Matrix-vector products give each thread VEC
+// adjacent output columns (16-byte loads: 4 floats or 8 bf16) and split K
+// across thread groups when a matrix has too few columns to occupy the block.
+// Each thread keeps 16 loads in flight (64 registers of data in f32), so the
+// step kernel is declared __launch_bounds__(NT, 1): one block per SM is
+// enough, which frees ptxas to use 108-160 registers.  With
+// __launch_bounds__(NT) alone it chose an occupancy target of 40-64
+// registers, spilled, and ran about 4x slower (measured at n64 on an H100,
+// PERF.md).  Accumulation, softmax
 // and LSTM state are float; values are rounded to the input type where the
 // JAX kernel casts them (sat_tpu/kernels/decoder_step.py::_kernel).
 #pragma once

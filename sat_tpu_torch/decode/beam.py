@@ -102,7 +102,7 @@ def greedy_decode(params, cfg: SATConfig, annotations: torch.Tensor, *,
     ``fused`` chooses the implementation, as in JAX: ``False`` is the plain
     per-step PyTorch path, ``True`` the step kernel
     (``kernels/decoder_step.py``) plus a matmul for the vocab projection, and
-    ``"loop"`` the whole-loop kernel (``kernels/greedy_loop.py``).  The one
+    ``"loop"`` the whole-loop phase kernels (``kernels/greedy_loop.py``).  The one
     difference from the JAX signature is the default, ``fused=None``: on a
     CUDA tensor it means the loop kernel where its gate allows, else the step
     kernel, which raises where its gate fails too (both need one LSTM layer:
@@ -113,7 +113,8 @@ def greedy_decode(params, cfg: SATConfig, annotations: torch.Tensor, *,
     ``early_exit=True`` stops once every caption has emitted <END>; the
     outputs equal the fixed-length run (finished rows only append PAD and
     zero alphas).  On the card that costs one host sync per step; the loop
-    kernel stops each block by itself and ignores it.
+    kernels ignore it: they stop on the device, once their count of finished
+    rows reaches the batch.
 
     annotations (B, L, D) -> BeamResult with k = 1."""
     annotations = annotations.contiguous()

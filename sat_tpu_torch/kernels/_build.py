@@ -7,10 +7,11 @@ with a plain C interface::
          -Xcompiler -fPIC -Xptxas=-v -o build/<name>-<hash>.so csrc/<name>.cu
 
 into ``sat_tpu_torch/build/``, named by a hash of the sources and flags, and
-loaded with ``ctypes``.  Each library exports one entry, ``sat_<name>``,
-whose C signature ``ARGTYPES`` declares: the wrappers pass ``data_ptr()``
-values and the current stream as pointers.  Every entry returns
-``cudaGetLastError()`` and ``check`` raises on a nonzero code."""
+loaded with ``ctypes``.  Each library exports an entry ``sat_<name>`` (and
+``greedy_loop`` its launch plan), whose C signatures ``ARGTYPES`` declares:
+the wrappers pass ``data_ptr()`` values and the current stream as pointers.
+Every entry returns a ``cudaError_t`` and ``check`` raises on a nonzero
+code."""
 
 from __future__ import annotations
 
@@ -31,15 +32,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# the C signature of each entry sat_<name>, as csrc/<name>.cu declares it
+# the C signature of each function that csrc/<name>.cu exports
 ARGTYPES = {
     # dtype; embed, h, c, annot, att_enc, 10 weights, t, h', c', z,
     # alpha; n, L, D, A, H, E, deep; stream
-    "decoder_step": [_I] + [_P] * 20 + [_I] * 7 + [_P],
-    # dtype; annot, att_enc, h0, c0, 10 weights, emb, wout, bout,
-    # tokens, alphas, scores, flen, fin; n, L, D, A, H, E, V, S, deep;
-    # temperature; start, end, pad, unk; stream
-    "greedy_loop": [_I] + [_P] * 22 + [_I] * 9 + [_F] + [_I] * 4 + [_P],
+    "decoder_step": {"sat_decoder_step": [_I] + [_P] * 20 + [_I] * 7 + [_P]},
+    "greedy_loop": {
+        # dtype; annot, att_enc, w1, wx, wo, wf, bb, bias, emb, wout, bout,
+        # xt, yt, c, g1, part, done, tokens, alphas, scores, flen, fin;
+        # B, Bp, L, D, A, H, E, V, S, N1, G, Ep, K4, kc, splits, deep;
+        # temperature; start, end, pad, unk; stream
+        "sat_greedy_loop": [_I] + [_P] * 22 + [_I] * 16 + [_F] + [_I] * 4 + [_P],
+        # dtype, B, L, D, E, V, N1, G, Ep, splits; out (30 ints)
+        "sat_greedy_loop_plan": [_I] * 10 + [ctypes.POINTER(_I)],
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -100,9 +106,10 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         lib.sat_error_string.restype = ctypes.c_char_p
         lib.sat_error_string.argtypes = [_I]
-        entry = getattr(lib, f"sat_{name}")
-        entry.restype = _I
-        entry.argtypes = ARGTYPES[name]
+        for sym, argtypes in ARGTYPES[name].items():
+            entry = getattr(lib, sym)
+            entry.restype = _I
+            entry.argtypes = argtypes
         _libs[name] = lib
     return _libs[name]
 

@@ -1,4 +1,4 @@
-"""The whole greedy decode in one CUDA kernel launch, ``csrc/greedy_loop.cu``.
+"""The whole greedy decode as batch-wide CUDA phase kernels, ``csrc/greedy_loop.cu``.
 
 Replaces the Pallas kernel ``sat_tpu/kernels/greedy_loop.py::_loop_kernel``
 (driven by ``greedy_loop_decode``, gated by ``greedy_loop_supported``).  The
@@ -9,46 +9,75 @@ with ``fused=False``, which differs from the Pallas kernel in two places:
   Pallas kernel keeps writing them);
 * ``embed_norm`` caps the embedding rows, for the lookup and for the tied
   output projection (the Pallas kernel skips the cap).  The wrapper caps the
-  whole table once and the kernel uses the capped table for both.
+  whole table once and the kernels use the capped table for both.
 
 Dropped TPU artifacts: the 8-row sublane padding, the one-hot embedding
-matmul (the kernel loads the row), the time-major output layout and the
-13 MB VMEM gate.  The gate here states what the CUDA design needs: one LSTM
-layer and a row's state (about 27 KB at n64) in a block's shared memory.
+matmul (the select phase loads the row), the time-major output layout and
+the 13 MB VMEM gate.
 
-What bounds it on an H100: each step streams the step weights plus Wout
-from L2 through one SM per row (see kernels/decoder_step.py); in exchange
-h, c, the logits and the loop bookkeeping never leave the SM, and a block
-stops once its row has finished.
+Design: one decode step for all B rows is five kernels (attention-side
+product, attention, gate product with the LSTM cell, deep-output product,
+selection), launched 5 (S+1) times on the current stream by one C call.  The
+three products are tiled over 64 rows, so each weight is read once per step
+per tile of 64 rows; the kernel boundaries stand in for grid-wide barriers,
+and a device count of finished rows makes every later kernel return at once
+when the whole batch has finished.  ``pack_loop_weights`` fixes the layout
+the kernels index.
 
-``greedy_loop_decode`` launches the kernel for CUDA tensors and runs
+``greedy_loop_decode`` launches the kernels for CUDA tensors and runs
 ``greedy_loop_plain``, the same function in PyTorch, for CPU tensors.  It
-raises on anything the kernel does not take; it never falls back."""
+raises on anything the kernels do not take; it never falls back."""
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
 from ..config import SATConfig
 from ..models.decoder import capped_embedding
 from . import _build
-from .decoder_step import (MAX_SMEM, _DTYPES, FusedWeights, _check,
-                           _check_shapes, check_weights, pack_fused_weights,
-                           ptrs, smem_bytes, step_math, stream_ptr)
+from .decoder_step import (MAX_SMEM, _DTYPES, _THREADS, FusedWeights, _check,
+                           _check_shapes, pack_fused_weights, ptrs, step_math,
+                           stream_ptr)
 
-# kernel launches since import (read and reset by chip_smoke.py)
+# wrapper calls that launched the kernels, since import (read and reset by
+# chip_smoke.py)
 launches = 0
 
 NEG_INF = -1e9
+# phase 4 splits its K rows into this many slices; phase 5 sums their
+# partial products in slice order
+DEEPOUT_SPLITS = 16
+PHASES = ("hside", "attend", "gates", "deepout", "select")
+
+
+def pad8(n: int) -> int:
+    """n rounded up to 8 elements: a whole number of 16-byte copies."""
+    return (n + 7) // 8 * 8
+
+
+def _pad4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def select_smem_bytes(E: int, V: int, itemsize: int = 4) -> int:
+    """Dynamic shared memory of a select block: t, the logits and the
+    vocabulary product's split-K scratch (csrc/greedy_loop.cu::plan)."""
+    return 4 * (_pad4(E) + _pad4(V) + _THREADS * (16 // itemsize))
+
+
+def _fits(L: int, E: int, V: int, itemsize: int) -> bool:
+    return (4 * _pad4(L) <= MAX_SMEM
+            and select_smem_bytes(E, V, itemsize) <= MAX_SMEM)
 
 
 def greedy_loop_supported(cfg: SATConfig, L: int, itemsize: int = 4) -> bool:
-    """One LSTM layer, and one row's state fits a block's shared memory."""
-    return cfg.decoder_layers == 1 and smem_bytes(
-        L, cfg.encoder_dim, cfg.attention_dim, cfg.decoder_dim,
-        cfg.embed_dim, cfg.vocab_size, itemsize) <= MAX_SMEM
+    """One LSTM layer, and the per-row shared memory of the attend (L scores)
+    and select (V + E floats and scratch) phases fits a block."""
+    return cfg.decoder_layers == 1 and _fits(L, cfg.embed_dim, cfg.vocab_size,
+                                             itemsize)
 
 
 def _special(cfg: SATConfig) -> Tuple[int, int, int, int]:
@@ -61,7 +90,7 @@ def greedy_scan(step, embed, cfg: SATConfig, h, c, L: int, *,
                 max_gen_length: int, temperature: float = 1.0,
                 early_exit: bool = False):
     """The greedy selection loop, step by step, with the XLA scan's semantics
-    (the kernel's, and that of greedy_decode's plain and step-kernel paths).
+    (the kernels', and that of greedy_decode's plain and step-kernel paths).
 
     ``step(prev_embed, h, c) -> (logits (B, V), h', c', alpha (B, L))`` and
     ``embed(tokens (B,) int64) -> (B, E)``; h and c have the batch on their
@@ -104,9 +133,82 @@ def greedy_scan(step, embed, cfg: SATConfig, h, c, L: int, *,
     return tokens, alphas, scores, flen, finished
 
 
+class LoopWeights(NamedTuple):
+    """The step weights in the layout the phase kernels index.
+
+    Gate columns are interleaved: column ``4u + q`` of the gate matrices
+    (the Whh part of ``w1``, ``wx``, ``bias``) holds gate q (i, f, g, o) of
+    hidden unit u, which is column ``q H + u`` of the ``FusedWeights``
+    matrices (``gate_columns``), so one thread's four adjacent columns are
+    the four gates of its unit.  Column counts are padded with zeros to
+    multiples of 8 elements (``pad8``), so every row of a matrix is a whole
+    number of 16-byte copies; K rows are not padded.  Small vectors are
+    float32 holding the values of the working type."""
+    w1: torch.Tensor     # (H, N1)   phase 1: columns [0, A) Wd, [A, A+D) Wb,
+    #                       [A+D, A+D+4H) Whh interleaved; N1 = pad8(A+D+4H)
+    wx: torch.Tensor     # (E+D, G)  phase 3: rows [0, E) Wie, [E, E+D) Wiz,
+    #                       interleaved; G = pad8(4H)
+    wo: torch.Tensor     # (H+D, Ep) phase 4: rows [0, H) Wh, [H, H+D) Wc;
+    #                       Ep = pad8(E)
+    wf: torch.Tensor     # (A,)  float32 attention scorer
+    bb: torch.Tensor     # (D,)  float32 beta gate bias
+    bias: torch.Tensor   # (G,)  float32 b_ih + b_hh, interleaved
+
+
+def gate_columns(H: int, device=None) -> torch.Tensor:
+    """Index of packed gate column ``4u + q``: the ``FusedWeights`` column
+    ``q H + u`` it holds (see ``LoopWeights``)."""
+    p = torch.arange(4 * H, device=device)
+    return (p % 4) * H + p // 4
+
+
+def pack_loop_weights(fw: FusedWeights) -> LoopWeights:
+    """``FusedWeights`` -> the phase kernels' layout, in fw's type."""
+    H, A = fw.wd.shape
+    D, E = fw.wb.shape[1], fw.wie.shape[0]
+    g = gate_columns(H, fw.wd.device)
+    n1, G = pad8(A + D + 4 * H), pad8(4 * H)
+    w1 = fw.wd.new_zeros(H, n1)
+    w1[:, :A] = fw.wd
+    w1[:, A:A + D] = fw.wb
+    w1[:, A + D:A + D + 4 * H] = fw.whh[:, g]
+    wx = fw.wd.new_zeros(E + D, G)
+    wx[:E, :4 * H] = fw.wie[:, g]
+    wx[E:, :4 * H] = fw.wiz[:, g]
+    wo = fw.wd.new_zeros(H + D, pad8(E))
+    wo[:H, :E] = fw.wh
+    wo[H:, :E] = fw.wc
+    bias = torch.zeros(G, device=fw.wd.device)
+    bias[:4 * H] = fw.bias[0, g].float()
+    return LoopWeights(w1, wx, wo, fw.wf[0].float(), fw.bb[0].float(), bias)
+
+
+def unpack_loop_weights(lw: LoopWeights) -> FusedWeights:
+    """The inverse of ``pack_loop_weights``: the same tensors, bit for bit."""
+    H, A, D = lw.w1.shape[0], lw.wf.shape[0], lw.bb.shape[0]
+    E, dt = lw.wx.shape[0] - D, lw.w1.dtype
+    inv = torch.argsort(gate_columns(H, lw.w1.device))
+    gates = lambda w: w[:, :4 * H][:, inv].contiguous()
+    return FusedWeights(
+        wd=lw.w1[:, :A].contiguous(), wf=lw.wf[None].to(dt),
+        wb=lw.w1[:, A:A + D].contiguous(), bb=lw.bb[None].to(dt),
+        wie=gates(lw.wx[:E]), wiz=gates(lw.wx[E:]),
+        whh=gates(lw.w1[:, A + D:]), bias=gates(lw.bias[None]).to(dt),
+        wh=lw.wo[:H, :E].contiguous(), wc=lw.wo[H:, :E].contiguous())
+
+
+def deepout_rows(H: int, D: int, deep: bool) -> Tuple[int, int]:
+    """Phase 4's K (the rows of ``wo`` it reads: Wc only with deep output)
+    and the K rows of each of its ``DEEPOUT_SPLITS`` slices; slice s covers
+    rows [s kc, min(K, (s+1) kc))."""
+    K = H + D if deep else H
+    return K, -(-K // DEEPOUT_SPLITS)
+
+
 def loop_weights(params, cfg: SATConfig, dtype: torch.dtype):
-    """(step weights, capped embedding table, Wout (E, V), bout (V,) f32)."""
-    fw = pack_fused_weights(params, cfg, dtype)
+    """(LoopWeights, capped embedding table (V, E), Wout (E, V), bout (V,)
+    f32), all in ``dtype`` apart from the float32 vectors."""
+    lw = pack_loop_weights(pack_fused_weights(params, cfg, dtype))
     emb = capped_embedding(params, cfg)
     if cfg.weight_tying and cfg.deep_output:
         wout = emb.T
@@ -115,20 +217,20 @@ def loop_weights(params, cfg: SATConfig, dtype: torch.dtype):
         wout = params.out_proj.w
         bout = (params.out_proj.b.float() if "b" in params.out_proj
                 else torch.zeros(cfg.vocab_size, device=emb.device))
-    return (fw, emb.to(dtype).contiguous(), wout.to(dtype).contiguous(),
+    return (lw, emb.to(dtype).contiguous(), wout.to(dtype).contiguous(),
             bout.float().contiguous())
 
 
-def greedy_loop_plain(fw: FusedWeights, emb: torch.Tensor, wout: torch.Tensor,
+def greedy_loop_plain(fw: LoopWeights, emb: torch.Tensor, wout: torch.Tensor,
                       bout: torch.Tensor, cfg: SATConfig,
                       annotations: torch.Tensor, att_enc: torch.Tensor,
                       h0: torch.Tensor, c0: torch.Tensor, *,
                       max_gen_length: int, temperature: float = 1.0):
-    """The kernel's function in PyTorch: ``greedy_scan`` over the kernel's
-    step (values rounded to the input type where the kernel rounds them),
-    stopping once every row has finished, as each block of the kernel does."""
+    """The kernels' function in PyTorch: ``greedy_scan`` over the kernels'
+    step (values rounded to the input type where the kernels round them),
+    stopping once every row has finished, as the kernels do."""
     dt = annotations.dtype
-    w = FusedWeights(*(x.float() for x in fw))
+    w = FusedWeights(*(x.float() for x in unpack_loop_weights(fw)))
     wout_f = wout.float()
 
     def step(e, h, c):
@@ -145,7 +247,7 @@ def greedy_loop_decode(params, cfg: SATConfig, annotations: torch.Tensor,
                        att_enc: torch.Tensor, h0: torch.Tensor,
                        c0: torch.Tensor, *, max_gen_length: int,
                        temperature: float = 1.0):
-    """Run the whole greedy loop in one launch.
+    """Run the whole greedy loop in one C call.
 
     annotations (B, L, D); att_enc (B, L, A); h0/c0 (B, H), one layer.
     Returns (tokens (B, S+2) int32, alphas (B, S+1, L) float32,
@@ -155,46 +257,98 @@ def greedy_loop_decode(params, cfg: SATConfig, annotations: torch.Tensor,
                        max_gen_length=max_gen_length, temperature=temperature)
 
 
-def greedy_loop(fw: FusedWeights, emb: torch.Tensor, wout: torch.Tensor,
+def loop_plan(B: int, L: int, D: int, A: int, H: int, E: int, V: int,
+              dtype: torch.dtype = torch.float32):
+    """The launch plan of one step, as the C side computes it: for each phase
+    of ``PHASES``, (grid (x, y, z), threads, dynamic and static shared memory
+    bytes).  Needs the built library."""
+    lib = _build.load("greedy_loop")
+    out = (ctypes.c_int * 30)()
+    _build.check(lib, lib.sat_greedy_loop_plan(
+        _DTYPES[dtype], B, L, D, E, V, pad8(A + D + 4 * H), pad8(4 * H),
+        pad8(E), DEEPOUT_SPLITS, out), "greedy_loop plan")
+    return {name: (tuple(out[6 * i:6 * i + 3]), out[6 * i + 3],
+                   out[6 * i + 4], out[6 * i + 5])
+            for i, name in enumerate(PHASES)}
+
+
+def check_loop_weights(lw: LoopWeights, D: int, A: int, H: int, E: int) -> None:
+    want = dict(w1=(H, pad8(A + D + 4 * H)), wx=(E + D, pad8(4 * H)),
+                wo=(H + D, pad8(E)), wf=(A,), bb=(D,), bias=(pad8(4 * H),))
+    _check_shapes({k: (getattr(lw, k).shape, v) for k, v in want.items()})
+
+
+def greedy_loop(fw: LoopWeights, emb: torch.Tensor, wout: torch.Tensor,
                 bout: torch.Tensor, cfg: SATConfig, annotations: torch.Tensor,
                 att_enc: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor, *,
                 max_gen_length: int, temperature: float = 1.0):
-    """``greedy_loop_decode`` on weights already in the kernel layout
-    (``loop_weights``): the kernel for CUDA tensors, ``greedy_loop_plain``
+    """``greedy_loop_decode`` on weights already in the kernels' layout
+    (``loop_weights``): the kernels for CUDA tensors, ``greedy_loop_plain``
     for CPU tensors."""
     global launches
-    dt, dev = annotations.dtype, annotations.device
+    dev = annotations.device
     if dev.type == "cpu":
         return greedy_loop_plain(fw, emb, wout, bout, cfg, annotations,
                                  att_enc, h0, c0, max_gen_length=max_gen_length,
                                  temperature=temperature)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
+    out = run_loop(fw, emb, wout, bout, cfg, annotations, att_enc, h0, c0,
+                   max_gen_length, temperature,
+                   torch.zeros(1, dtype=torch.int32, device=dev))
+    launches += 1
+    return out
+
+
+def run_loop(lw: LoopWeights, emb, wout, bout, cfg: SATConfig, annotations,
+             att_enc, h0, c0, max_gen_length: int, temperature: float,
+             done: torch.Tensor):
+    """Check the inputs, allocate the batch state and make the C call.
+    ``done`` (1,) int32 is the device count of finished rows; every kernel
+    returns at once while it equals B (``greedy_loop`` passes a zero)."""
+    dt, dev = annotations.dtype, annotations.device
     b, L, D = annotations.shape
     H, A, E, V, S = h0.shape[-1], att_enc.shape[-1], emb.shape[1], emb.shape[0], max_gen_length
     _check(dict(annotations=annotations, att_enc=att_enc, h0=h0, c0=c0,
-                emb=emb, wout=wout, **fw._asdict()), dt, dev)
-    _check(dict(bout=bout), torch.float32, dev)
+                emb=emb, wout=wout, w1=lw.w1, wx=lw.wx, wo=lw.wo), dt, dev)
+    _check(dict(bout=bout, wf=lw.wf, bb=lw.bb, bias=lw.bias), torch.float32, dev)
     _check_shapes(dict(att_enc=(att_enc.shape, (b, L, A)), h0=(h0.shape, (b, H)),
                        c0=(c0.shape, (b, H)), wout=(wout.shape, (E, V)),
-                       bout=(bout.shape, (V,))))
-    check_weights(fw, D, A, H, E)
-    if smem_bytes(L, D, A, H, E, V, annotations.element_size()) > MAX_SMEM:
-        raise ValueError("greedy loop: one row's state exceeds shared memory")
+                       bout=(bout.shape, (V,)), done=(done.shape, (1,))))
+    check_loop_weights(lw, D, A, H, E)
+    if any(x.data_ptr() % 16 for x in (lw.w1, lw.wx, lw.wo)):
+        raise ValueError("greedy loop: packed weights must be 16-byte aligned")
+    if not _fits(L, E, V, annotations.element_size()):
+        raise ValueError("greedy loop: a row's state exceeds shared memory")
     start_i, end_i, pad_i, unk_i = _special(cfg)
+    n1, G, Ep = lw.w1.shape[1], lw.wx.shape[1], lw.wo.shape[1]
+    K4, kc = deepout_rows(H, D, cfg.deep_output)
+    bp = pad8(b)
 
-    tokens = torch.empty(b, S + 2, dtype=torch.int32, device=dev)
-    alphas = torch.empty(b, S + 1, L, dtype=torch.float32, device=dev)
-    scores = torch.empty(b, dtype=torch.float32, device=dev)
-    flen = torch.empty(b, dtype=torch.int32, device=dev)
-    finished = torch.empty(b, dtype=torch.bool, device=dev)
+    # feature-major activations, padding columns zero: xt = [e; beta z],
+    # yt = [h; z]; c and the products' outputs in float32
+    xt = torch.zeros(E + D, bp, dtype=dt, device=dev)
+    xt[:E, :b] = emb[start_i][:, None]
+    yt = torch.zeros(H + D, bp, dtype=dt, device=dev)
+    yt[:H, :b] = h0.T
+    c = c0.to(torch.float32, copy=True)
+    g1 = torch.empty(b, n1, dtype=torch.float32, device=dev)
+    part = torch.empty(DEEPOUT_SPLITS, b, Ep, dtype=torch.float32, device=dev)
+
+    tokens = torch.full((b, S + 2), pad_i, dtype=torch.int32, device=dev)
+    tokens[:, 0] = start_i
+    alphas = torch.zeros(b, S + 1, L, dtype=torch.float32, device=dev)
+    scores = torch.zeros(b, dtype=torch.float32, device=dev)
+    flen = torch.zeros(b, dtype=torch.int32, device=dev)
+    finished = torch.zeros(b, dtype=torch.bool, device=dev)
     lib = _build.load("greedy_loop")
     with torch.cuda.device(dev):
         err = lib.sat_greedy_loop(
-            _DTYPES[dt], *ptrs(annotations, att_enc, h0, c0, *fw, emb, wout, bout,
-                  tokens, alphas, scores, flen, finished),
-            b, L, D, A, H, E, V, S, int(cfg.deep_output), float(temperature),
-            start_i, end_i, pad_i, unk_i, stream_ptr(dev))
-    _build.check(lib, err, "greedy_loop kernel")
-    launches += 1
+            _DTYPES[dt], *ptrs(annotations, att_enc, lw.w1, lw.wx, lw.wo, lw.wf,
+                               lw.bb, lw.bias, emb, wout, bout, xt, yt, c, g1,
+                               part, done, tokens, alphas, scores, flen, finished),
+            b, bp, L, D, A, H, E, V, S, n1, G, Ep, K4, kc, DEEPOUT_SPLITS,
+            int(cfg.deep_output), float(temperature), start_i, end_i, pad_i,
+            unk_i, stream_ptr(dev))
+    _build.check(lib, err, "greedy_loop kernels")
     return tokens, alphas, scores, flen, finished

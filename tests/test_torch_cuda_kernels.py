@@ -1,4 +1,4 @@
-"""The two CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``; each test skips when no CUDA device is present (decided
 inside the test, so every worker collects the same tests).  Run on a
@@ -59,6 +59,11 @@ SHAPES = [  # (E, D, A, H, V, L, B): n64 widths, and odd narrow ones
     (8, 1024, 8, 12, 24, 1, 13),
     (10, 36, 9, 14, 29, 5, 300),
 ]
+# the loop kernels also at one row and at one row past a 64-row tile
+LOOP_SHAPES = SHAPES + [
+    (256, 1024, 128, 512, 97, 49, 1),
+    (256, 1024, 128, 512, 97, 49, 65),
+]
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -88,7 +93,7 @@ def test_step_kernel(shape, dtype, deep):
         assert (x.float() - y.float()).abs().max().item() <= tol
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", LOOP_SHAPES)
 @pytest.mark.parametrize("tying,embed_norm", [(False, None), (True, 1.5)])
 @pytest.mark.parametrize("temperature", [1.0, 0.7])
 def test_loop_kernel(shape, tying, embed_norm, temperature):
@@ -109,6 +114,41 @@ def test_loop_kernel(shape, tying, embed_norm, temperature):
     assert same.float().mean().item() >= 0.99
     assert (got.scores - ref.scores)[same].abs().max().item() <= 1e-3
     assert (got.alphas - ref.alphas)[same].abs().max().item() <= 1e-4
+
+
+def test_loop_kernel_stops_once_every_row_finished():
+    """Every row emits END at step 1: the device count of finished rows
+    reaches B, the kernels of the later steps return at once, and those steps
+    hold the PAD tokens and zero alphas of ``greedy_loop_plain``.  A count
+    preset to B stops every step."""
+    dev = _card()
+    E, D, A, H, V, L, B = SHAPES[0]
+    cfg, p = make(E, D, A, H, V)
+    p.out_proj.b[V - 1] += 50.0   # END wins wherever it is not masked
+    p = p.to(dev)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    a = torch.randn(B, L, D, generator=g).to(dev)
+    att_enc = TD.attention_precompute(p, a).contiguous()
+    h, c = TD.init_lstm_state(p, a, cfg)
+    args = (*KL.loop_weights(p, cfg, torch.float32), cfg, a, att_enc,
+            h[0].contiguous(), c[0].contiguous())
+    S, pad = 12, cfg.vocab_stoi["<PAD>"]
+    done = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = KL.run_loop(*args, S, 1.0, done)
+    ref = KL.greedy_loop_plain(*args, max_gen_length=S)
+    torch.cuda.synchronize()
+    assert done.item() == B
+    assert ref[4].all() and (ref[3] == 1).all()
+    for x, y in zip((got[0], got[3], got[4]), (ref[0], ref[3], ref[4])):
+        assert torch.equal(x, y)
+    assert (got[2] - ref[2]).abs().max().item() <= 1e-3
+    assert (got[1] - ref[1]).abs().max().item() <= 1e-4
+    assert (got[0][:, 3:] == pad).all() and (got[1][:, 2:] == 0).all()
+    idle = KL.run_loop(*args, S, 1.0,
+                       torch.full((1,), B, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    assert (idle[0][:, 1:] == pad).all()
+    assert (idle[1] == 0).all() and (idle[2] == 0).all() and not idle[4].any()
 
 
 def test_wrapper_rejects_bad_input():

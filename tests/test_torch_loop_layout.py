@@ -1,0 +1,183 @@
+"""The loop kernels' weight layout (``kernels/greedy_loop.py::LoopWeights``),
+held on the CPU against the step it must compute.
+
+``layout_step`` follows the layout phase by phase as ``csrc/greedy_loop.cu``
+indexes it: the phase-1 product and its column ranges, the gate-interleaved
+phase-3 product with the LSTM cell on columns 4u..4u+3, and phase 4's split-K
+partial products summed in slice order.  It is held against ``step_math`` on
+the ``FusedWeights`` the layout was packed from.  Tolerances, of each
+output's scale (its largest magnitude): float32 1e-5, because the sums are
+taken in another order; bfloat16 2^-7, one bfloat16 step, because the values
+are rounded to bfloat16 at the same points, and two float32 sums taken in
+another order that straddle a rounding boundary round one step apart (one
+such element at n64 here).  Unpacking the layout gives back
+``pack_fused_weights``' tensors bit for bit."""
+
+import numpy as np
+import pytest
+import torch
+
+from sat_tpu_torch.config import SATConfig
+from sat_tpu_torch.kernels import greedy_loop as KL
+from sat_tpu_torch.kernels.decoder_step import (FusedWeights,
+                                                pack_fused_weights, step_math)
+from sat_tpu_torch.models import decoder as TD
+
+WIDTHS = [  # (E, D, A, H, V, L, B): n64, and the card tests' odd widths
+    (256, 1024, 128, 512, 97, 49, 64),
+    (8, 1024, 8, 12, 24, 1, 13),
+    (10, 36, 9, 14, 29, 5, 30),
+]
+
+
+def make(E, D, A, H, V, deep=True, seed=0):
+    """Random decoder params in the JAX layout, built with numpy."""
+    stoi = {f"w{i}": i for i in range(1, V - 3)}
+    stoi.update({"<UNK>": V - 3, "<START>": V - 2, "<END>": V - 1, "<PAD>": 0})
+    cfg = SATConfig(vocab_size=V, vocab_stoi=stoi, embed_dim=E, encoder_dim=D,
+                    attention_dim=A, decoder_dim=H, deep_output=deep)
+    rng = np.random.default_rng(seed)
+    u = lambda fan, *s: rng.uniform(-fan ** -0.5, fan ** -0.5, s).astype(np.float32)
+    tree = {"embedding": rng.normal(size=(V, E)).astype(np.float32),
+            "att_enc": {"w": u(D, D, A)}, "att_dec": {"w": u(H, H, A)},
+            "f_att": {"w": u(A, A, 1)},
+            "beta": {"w": u(H, H, D), "b": u(H, D)},
+            "lstm": {"layer_0": {"w_ih": u(H, E + D, 4 * H), "w_hh": u(H, H, 4 * H),
+                                 "b_ih": u(H, 4 * H), "b_hh": u(H, 4 * H)}},
+            "out_hidden": {"w": u(H, H, E)},
+            "out_proj": {"w": u(E, E, V), "b": u(E, V)}}
+    if deep:
+        tree["out_context"] = {"w": u(D, D, E)}
+    return cfg, TD.ParamTree(tree), rng
+
+
+def inputs(rng, cfg, B, L, dtype):
+    """Step inputs e, h (in dtype), c (float32), annotations, att_enc."""
+    E, D, H = cfg.embed_dim, cfg.encoder_dim, cfg.decoder_dim
+    n = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    a = n(B, L, D).to(dtype)
+    att_enc = torch.tanh(n(B, L, cfg.attention_dim)).to(dtype)
+    return n(B, E).to(dtype), torch.tanh(n(B, H)).to(dtype), n(B, H), a, att_enc
+
+
+def layout_step(lw: KL.LoopWeights, deep: bool, dt, e, h, c, annotations,
+                att_enc):
+    """One step from the packed tensors, phase by phase as the kernels index
+    them.  Returns float32 (gates in FusedWeights column order, h', c', t
+    rounded to dt)."""
+    rnd = lambda x: x.to(dt).float()
+    H, A, D = lw.w1.shape[0], lw.wf.shape[0], lw.bb.shape[0]
+    E, B, L = lw.wx.shape[0] - D, e.shape[0], annotations.shape[1]
+    e, h = e.float(), h.float()
+    # 1. hside: g1 = h w1; columns [0, A) att_dec, [A, A+D) x_beta, then g_h
+    g1 = h @ lw.w1.float()
+    att_dec, x_beta, g_h = g1[:, :A], g1[:, A:A + D], g1[:, A + D:A + D + 4 * H]
+    # 2. attend
+    s = torch.tanh(att_enc.float() + att_dec[:, None, :])
+    alpha = torch.softmax((s * lw.wf).sum(-1) * (L ** -0.5), dim=-1)
+    z = torch.einsum("bl,bld->bd", alpha, annotations.float())
+    beta_z = rnd(torch.sigmoid(x_beta + lw.bb) * z)
+    # 3. gates: [e | beta z] wx + g_h + bias, column 4u + q = gate q of unit u
+    gates = (torch.cat([e, beta_z], 1) @ lw.wx.float())[:, :4 * H] + g_h + lw.bias[:4 * H]
+    i, f, g, o = gates.view(B, H, 4).unbind(-1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    h_new = rnd(torch.sigmoid(o) * torch.tanh(c_new))
+    # 4. deepout: partial products of [h' | z] wo over the K slices, summed
+    # in slice order by 5. select
+    y = torch.cat([h_new, rnd(z)], 1)
+    K, kc = KL.deepout_rows(H, D, deep)
+    acc = torch.zeros(B, lw.wo.shape[1])
+    for sl in range(KL.DEEPOUT_SPLITS):
+        k0 = min(K, sl * kc)
+        k1 = min(K, k0 + kc)
+        acc = acc + y[:, k0:k1] @ lw.wo[k0:k1].float()
+    t = acc[:, :E]
+    if deep:
+        t = torch.tanh(e + t)
+    inv = torch.argsort(KL.gate_columns(H))
+    return gates[:, inv], h_new, c_new, rnd(t)
+
+
+def reference_step(fw: FusedWeights, deep: bool, dt, e, h, c, annotations,
+                   att_enc):
+    """The same outputs from ``step_math`` (gates as step_math forms them)."""
+    w = FusedWeights(*(x.float() for x in fw))
+    t, h_new, c_new, zt, _ = step_math(w, deep, dt, e, h, c, annotations, att_enc)
+    beta = torch.sigmoid(h.float() @ w.wb + w.bb)
+    xz = (beta * zt).to(dt).float()
+    gates = e.float() @ w.wie + xz @ w.wiz + h.float() @ w.whh + w.bias
+    return gates, h_new, c_new, t.to(dt).float()
+
+
+@pytest.mark.parametrize("widths", WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("deep", [True, False])
+def test_layout_step_matches_step_math(widths, dtype, deep):
+    E, D, A, H, V, L, B = widths
+    cfg, params, rng = make(E, D, A, H, V, deep=deep)
+    lw, *_ = KL.loop_weights(params, cfg, dtype)
+    fw = pack_fused_weights(params, cfg, dtype)
+    x = inputs(rng, cfg, B, L, dtype)
+    got = layout_step(lw, deep, dtype, *x)
+    want = reference_step(fw, deep, dtype, *x)
+    rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    for name, a, b in zip(("gates", "h'", "c'", "t"), got, want):
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        assert err <= rel * scale, f"{name}: {err} > {rel} * {scale}"
+
+
+@pytest.mark.parametrize("widths", WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("deep", [True, False])
+def test_unpack_gives_back_fused_weights(widths, dtype, deep):
+    E, D, A, H, V, L, B = widths
+    cfg, params, _ = make(E, D, A, H, V, deep=deep)
+    fw = pack_fused_weights(params, cfg, dtype)
+    lw = KL.pack_loop_weights(fw)
+    back = KL.unpack_loop_weights(lw)
+    for name in FusedWeights._fields:
+        a, b = getattr(back, name), getattr(fw, name)
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a.view(torch.int16 if a.dtype == torch.bfloat16
+                                  else torch.int32),
+                           b.view(torch.int16 if b.dtype == torch.bfloat16
+                                  else torch.int32)), name
+
+
+@pytest.mark.parametrize("H", [1, 3, 12, 512])
+def test_gate_columns_interleave_units(H):
+    """Packed column 4u + q holds gate q of unit u, and every column once."""
+    g = KL.gate_columns(H)
+    assert sorted(g.tolist()) == list(range(4 * H))
+    for u in range(min(H, 5)):
+        assert g[4 * u:4 * u + 4].tolist() == [q * H + u for q in range(4)]
+
+
+def test_layout_pads_columns_to_whole_copies():
+    """Every packed matrix has a multiple of 8 columns, zero past the data,
+    so each row is a whole number of 16-byte copies in either type."""
+    E, D, A, H, V = 10, 36, 9, 13, 29
+    cfg, params, _ = make(E, D, A, H, V)
+    lw, *_ = KL.loop_weights(params, cfg, torch.bfloat16)
+    assert lw.w1.shape == (H, KL.pad8(A + D + 4 * H))
+    assert lw.wx.shape == (E + D, KL.pad8(4 * H))
+    assert lw.wo.shape == (H + D, KL.pad8(E))
+    for w, n in ((lw.w1, A + D + 4 * H), (lw.wx, 4 * H), (lw.wo, E), (lw.bias, 4 * H)):
+        assert w.shape[-1] % 8 == 0 and not w[..., n:].any()
+    for deep, K in ((True, H + D), (False, H)):
+        k, kc = KL.deepout_rows(H, D, deep)
+        rows = [r for s in range(KL.DEEPOUT_SPLITS)
+                for r in range(min(k, s * kc), min(k, s * kc + kc))]
+        assert k == K and rows == list(range(K))   # each K row in one slice
+
+
+def test_loop_gate_uses_select_state():
+    """The gate is the phase kernels' own need: one layer, and a select
+    block's t, logits and scratch (V + E floats and more) within a block's
+    shared memory."""
+    cfg, _, _ = make(256, 1024, 128, 512, 97)
+    assert KL.select_smem_bytes(256, 97) < 8 * 1024
+    assert KL.greedy_loop_supported(cfg, 49)
+    assert KL.greedy_loop_supported(cfg.replace(vocab_size=50000), 196)
+    assert not KL.greedy_loop_supported(cfg.replace(vocab_size=60000), 196)
