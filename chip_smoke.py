@@ -9,12 +9,14 @@ Phases, each of which fails the run (nonzero exit, no result line):
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them;
 2. build both CUDA sources from ``sat_tpu_torch/csrc`` (all nvcc processes at
    once) and print the build time and, for what it compiled, each kernel
-   instance's registers and spills (``nvcc -Xptxas=-v``; a spill in a loop
-   phase kernel fails the run), and the loop kernels' launch plan at B = 64
-   (``[design]``: each phase's grid, threads and shared memory);
+   instance's registers and spills (``nvcc -Xptxas=-v``; a spill in a phase
+   kernel of either source fails the run), and both launch plans at B = 64
+   (``[design]``: each kernel's grid, threads and shared memory; each tiled
+   product must fill 64 blocks);
 3. hold each kernel against its plain PyTorch version on the card, float32,
    n64 weights, B = 64, at the shapes of the main path, then at other shapes
-   that take the kernels' other code paths;
+   that take the kernels' other code paths (B = 192 and 300 at n64, the
+   golden checkpoint's narrow widths at B = 13, and the step in bfloat16);
 4. main path: load the n64 checkpoint, encode 64 seeded 224 px images, greedy
    captioning through the loop kernel (default), the step kernel
    (``fused=True``) and the plain path (``fused=False``), with launch counts
@@ -23,8 +25,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
 6. times, with CUDA events after a warm-up, the median of several runs: each
    kernel and its plain version per call (the ``kernels`` line), and greedy
    captioning end to end (encode + decode, images/s); beside them the busy
-   device time per call from torch.profiler, and each loop phase's busy
-   time per decode.
+   device time per call from torch.profiler, each loop phase's busy time
+   per decode and each step kernel's busy time per call.
 
 The last three lines of standard output are ``[report]`` with every number
 of the run as JSON, the ``kernels`` JSON line and
@@ -49,7 +51,8 @@ CKPT = os.path.join(ROOT, "tests", "data", "best_n64_r4_serving.ckpt")
 GOLDEN = os.path.join(ROOT, "tests", "data", "golden_v1.ckpt")
 DEVICE = "cuda"
 B, S = 64, 20
-B_WIDE = 300   # more rows (one block each) than an H100 has SMs
+B_BEAM = 192   # beam search's B k rows at beamk 3: three 64-row tiles
+B_WIDE = 300   # five 64-row tiles, more rows than an H100 has SMs
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -118,6 +121,22 @@ def cuda_ms(fn, calls=1, warmup=3, reps=10):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
+def host_ms(fn, calls=20, reps=5):
+    """Milliseconds of host time per call of fn(), not waiting for the
+    device: what the wrapper costs the host (checks, allocations,
+    launches).  The median over ``reps`` runs of ``calls`` calls."""
+    import torch
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e3)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -221,8 +240,8 @@ def main():
     for k, log in _build.build().items():
         for kern, typ, regs, spill in ptxas_summary(log):
             print(f"[ptxas] {k} {kern} {typ}: {regs}; {spill}")
-            check(not (kern.startswith("greedy_loop_") and spilled(spill)),
-                  f"{kern} {typ} spills")
+            check(not (kern.startswith(("greedy_loop_", "decoder_step_"))
+                       and spilled(spill)), f"{kern} {typ} spills")
     for name in _build.SOURCES:
         _build.load(name)
     report["build_s"] = time.perf_counter() - t0
@@ -239,34 +258,51 @@ def main():
     h0, c0 = TD.init_lstm_state(params, annots, cfg)
     h0, c0 = h0[0].contiguous(), c0[0].contiguous()
     fw = KS.pack_fused_weights(params, cfg, torch.float32)
+    sw = KS.pack_loop_weights(fw)
     H, E, A, V = cfg.decoder_dim, cfg.embed_dim, cfg.attention_dim, cfg.vocab_size
-    plan = KL.loop_plan(B, L, D, A, H, E, V)
-    report["loop_plan"] = plan
-    print(f"[design] greedy loop phases, f32 B={B}: " + "; ".join(
-        f"{k} grid {g} x {n} threads, smem {dyn} B dynamic + {st} B static"
-        for k, (g, n, dyn, st) in plan.items()), flush=True)
-    for k in ("hside", "gates", "deepout"):
-        check(plan[k][0][0] * plan[k][0][1] * plan[k][0][2] >= 64, f"{k} fills 64 blocks")
+    plans = {"greedy loop phases": KL.loop_plan(B, L, D, A, H, E, V),
+             "decoder step kernels": KS.step_plan(B, L, D, A, H, E)}
+    report["loop_plan"], report["step_plan"] = plans.values()
+    for what, plan in plans.items():
+        print(f"[design] {what}, f32 B={B}: " + "; ".join(
+            f"{k} grid {g} x {n} threads, smem {dyn} B dynamic + {st} B static"
+            for k, (g, n, dyn, st) in plan.items()), flush=True)
+        for k in ("hside", "gates", "deepout"):
+            check(plan[k][0][0] * plan[k][0][1] * plan[k][0][2] >= 64,
+                  f"{what}: {k} fills 64 blocks")
     ids = torch.from_numpy(np.random.default_rng(1).integers(
         1, cfg.vocab_size, size=B)).to(dev)
     e = TD.embed_tokens(params, ids, cfg).contiguous()
 
-    step_args = (fw, cfg, e, h0, c0, annots, att_enc)
-    got = KS.fused_decoder_step(*step_args)
-    ref = KS.fused_decoder_step_plain(*step_args)
-    torch.cuda.synchronize()
-    step_err = {}
-    for name, g, r in zip(("t", "h", "c", "z", "alpha"), got, ref):
-        check(torch.isfinite(g).all(), f"decoder_step {name} is finite")
-        err = (g.float() - r.float()).abs().max().item()
-        # float32 sums taken in another order: ~1e-6 of the operands' scale;
-        # 1e-4 of each output's own scale leaves two orders of margin (z
-        # carries the annotations' scale, ~200 at n64)
-        tol = 1e-4 * max(1.0, r.abs().max().item())
-        check(err <= tol, f"decoder_step {name}: {err} > {tol}")
-        step_err[name] = err
-    print(f"[check] decoder_step kernel vs plain, f32 B={B}: max abs err "
-          + ", ".join(f"{k} {v:.2e}" for k, v in step_err.items()), flush=True)
+    def check_step(label, args, rel=1e-4):
+        """The step kernels against their plain version on ``args``: each
+        output within ``rel`` of its own scale.  Returns the outputs and
+        each one's max abs error."""
+        got = KS.fused_decoder_step(*args)
+        ref = KS.fused_decoder_step_plain(*args)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, g, r in zip(("t", "h", "c", "z", "alpha"), got, ref):
+            check(g.shape == r.shape and torch.isfinite(g).all(),
+                  f"{label}: decoder_step {name} shape and finite values")
+            err = (g.float() - r.float()).abs().max().item()
+            tol = rel * max(1.0, r.float().abs().max().item())
+            check(err <= tol, f"{label}: decoder_step {name}: {err} > {tol}")
+            errs[name] = err
+        print(f"[check] decoder_step kernels vs plain, {label}: max abs err "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()), flush=True)
+        return got, errs
+
+    # float32 sums taken in another order: ~1e-6 of the operands' scale;
+    # 1e-4 of each output's own scale leaves two orders of margin (z
+    # carries the annotations' scale, ~200 at n64)
+    step_args = (sw, cfg, e, h0, c0, annots, att_enc)
+    got, step_err = check_step(f"f32 B={B}", step_args)
+    # bfloat16: outputs may differ by one rounding step of the output type
+    bf = lambda x: x.to(torch.bfloat16).contiguous()
+    step_args16 = (KS.step_weights(params, cfg, torch.bfloat16), cfg,
+                   *map(bf, (e, h0, c0, annots, att_enc)))
+    _, step_err16 = check_step(f"bf16 B={B}", step_args16, rel=1e-2)
 
     lw = KL.loop_weights(params, cfg, torch.float32)
     loop_args = (*lw, cfg, annots, att_enc, h0, c0)
@@ -286,21 +322,19 @@ def main():
           f"lengths agree on {rate * 100:.1f}% of rows, max abs err of scores "
           f"and alphas {loop_err:.2e}", flush=True)
 
-    # other shapes: more rows than SMs (B_WIDE), and the golden checkpoint's
-    # narrow widths (H 12, A 8, E 8, V 24, L 1) for the scalar GEMV paths
+    # other shapes: several 64-row tiles (B_BEAM, B_WIDE), and the golden
+    # checkpoint's narrow widths (H 12, A 8, E 8, V 24, L 1) for the ragged
+    # tiles and the scalar GEMV paths
     golden, _ = load_model_from_checkpoint(GOLDEN)
-    for label, m, n in ((f"n64 B={B_WIDE}", model, B_WIDE), ("golden B=13", golden, 13)):
+    for label, m, n in ((f"n64 B={B_BEAM}", model, B_BEAM),
+                        (f"n64 B={B_WIDE}", model, B_WIDE), ("golden B=13", golden, 13)):
         x = torch.from_numpy(scenes(n, m.cfg.input_size, seed=2)).to(dev)
         an = m.encode(x)
         ae = TD.attention_precompute(m.decoder, an)
         hh, cc = TD.init_lstm_state(m.decoder, an, m.cfg)
         hh, cc = hh[0].contiguous(), cc[0].contiguous()
-        w = KS.pack_fused_weights(m.decoder, m.cfg)
         ee = TD.embed_tokens(m.decoder, torch.full((n,), 3, device=dev), m.cfg)
-        for g, r in zip(KS.fused_decoder_step(w, m.cfg, ee, hh, cc, an, ae),
-                        KS.fused_decoder_step_plain(w, m.cfg, ee, hh, cc, an, ae)):
-            tol = 1e-4 * max(1.0, r.abs().max().item())
-            check((g.float() - r.float()).abs().max().item() <= tol, f"{label}: decoder_step")
+        check_step(label, (KS.step_weights(m.decoder, m.cfg), m.cfg, ee, hh, cc, an, ae))
         la = (*KL.loop_weights(m.decoder, m.cfg, torch.float32), m.cfg, an, ae, hh, cc)
         k2, p2 = KL.greedy_loop(*la, max_gen_length=S), KL.greedy_loop_plain(*la, max_gen_length=S)
         ok = (k2[0] == p2[0]).all(-1) & (k2[3] == p2[3])
@@ -370,9 +404,10 @@ def main():
     # -- 6. timing ----------------------------------------------------------------------
     f32 = "float32"
     calls = {  # name: (function, calls per timed run, kernel name for the profiler)
-        "decoder_step": (lambda: KS.fused_decoder_step(*step_args), 20,
-                         "decoder_step_kernel"),
+        "decoder_step": (lambda: KS.fused_decoder_step(*step_args), 20, "decoder_step_"),
         "decoder_step_plain": (lambda: KS.fused_decoder_step_plain(*step_args), 20, None),
+        "decoder_step_bf16": (lambda: KS.fused_decoder_step(*step_args16), 20,
+                              "decoder_step_"),
         "greedy_loop": (lambda: KL.greedy_loop(*loop_args, max_gen_length=S), 1,
                         "greedy_loop_"),
         "greedy_loop_plain": (lambda: KL.greedy_loop_plain(*loop_args, max_gen_length=S),
@@ -397,6 +432,15 @@ def main():
                       for k, v in busy.items()), flush=True)
     phase_busy = {f"{ph}{label}": device_ms(calls["greedy_loop" + label][0], "greedy_loop_" + ph)
                   for label in ("", "_bf16") for ph in KL.PHASES}
+    step_busy = {f"{k}{label}": device_ms(calls["decoder_step" + label][0], "decoder_step_" + k)
+                 for label in ("", "_bf16") for k in KS.KERNELS}
+    print(f"[time] step kernels (B={B}), busy device time per call, torch.profiler: "
+          + ", ".join(f"{k} {'not measured' if v is None else f'{v * 1e3:.1f} us'}"
+                      for k, v in step_busy.items()), flush=True)
+    step_host = {k: host_ms(calls[k][0]) for k in ("decoder_step", "decoder_step_bf16")}
+    print("[time] step wrapper, host time per call (checks, 9 allocations, 6 "
+          "launches): " + ", ".join(f"{k} {v:.3f} ms" for k, v in step_host.items()),
+          flush=True)
     batch_steps = int(torch.where(kl[4], kl[3] + 1, S + 1).max())
     print(f"[time] loop phases ({batch_steps} of {S + 1} steps run before every row "
           "finished), busy device time per decode, torch.profiler: "
@@ -436,7 +480,12 @@ def main():
     ]
     report.update(kernels=kernels, step_err=step_err, loop_agreement=rate,
                   main_agreement=agree, bf16=bf16, e2e=e2e, call_ms=ms, busy_ms=busy,
-                  loop_phase_busy_ms=phase_busy, loop_batch_steps=batch_steps,
+                  loop_phase_busy_ms=phase_busy, step_kernel_busy_ms=step_busy,
+                  step_host_ms=step_host,
+                  step_err_bf16=step_err16,
+                  kernel_launches_per_call={"decoder_step": len(KS.KERNELS),
+                                            "greedy_loop": len(KL.PHASES) * (S + 1)},
+                  loop_batch_steps=batch_steps,
                   loop_rows_steps=steps_run,
                   captions=words[:8], finished=n_done, batch=B, max_gen_length=S)
     print("[report] " + json.dumps(report))

@@ -1,22 +1,8 @@
-// Device code of the step kernel (decoder_step.cu): the shared-memory layout
-// of a row and one decode step (attention, beta gate, LSTM cell, deep-output
-// pre-projection) for it.  The loop kernels (greedy_loop.cu) use only its
-// helpers: loads and conversions, warp reductions and gemv.
-//
-// Design.  One block of NT threads owns one row.  The row's state (h, c, the
-// embedding, the context, the gates) lives in shared memory as float for the
-// whole step.  Weights are read from global memory, where the n64 set (18 MB
-// in f32) stays in the 50 MB L2.  Matrix-vector products give each thread VEC
-// adjacent output columns (16-byte loads: 4 floats or 8 bf16) and split K
-// across thread groups when a matrix has too few columns to occupy the block.
-// Each thread keeps 16 loads in flight (64 registers of data in f32), so the
-// step kernel is declared __launch_bounds__(NT, 1): one block per SM is
-// enough, which frees ptxas to use 108-160 registers.  With
-// __launch_bounds__(NT) alone it chose an occupancy target of 40-64
-// registers, spilled, and ran about 4x slower (measured at n64 on an H100,
-// PERF.md).  Accumulation, softmax
-// and LSTM state are float; values are rounded to the input type where the
-// JAX kernel casts them (sat_tpu/kernels/decoder_step.py::_kernel).
+// Device helpers shared by the CUDA sources: loads and conversions between
+// float32 and bfloat16, warp reductions, and the matrix-vector product gemv
+// of one row (the loop's select phase).  Accumulation is float; values are
+// rounded to the input type where the JAX kernels cast them
+// (sat_tpu/kernels/decoder_step.py::_kernel).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -31,14 +17,6 @@ constexpr int NWARPS = NT / 32;
 constexpr unsigned FULL = 0xffffffffu;
 
 __host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
-
-// Floats of dynamic shared memory for one row; V = 0 for the step kernel.
-// Mirrored by smem_bytes() in sat_tpu_torch/kernels/decoder_step.py.
-__host__ __device__ inline size_t smem_floats(int L, int D, int A, int H, int E, int V,
-                                              int vec) {
-  return (size_t)2 * pad4(H) + 2 * pad4(E) + pad4(A) + pad4(L) + 2 * pad4(D) +
-         pad4(4 * H) + pad4(V) + (size_t)NT * vec;
-}
 
 template <typename T> struct Pack;
 template <> struct Pack<float> { static constexpr int N = 4; };
@@ -189,143 +167,6 @@ __device__ __forceinline__ void gemv(const float* x, const T* __restrict__ W, in
     gemv_v<V, T>(x, W, K, ncols, out, accumulate, scratch);
   else
     gemv_v<1, T>(x, W, K, ncols, out, accumulate, scratch);
-}
-
-template <typename T> struct StepArgs {
-  const T* annot;    // (N, L, D)
-  const T* att_enc;  // (N, L, A)
-  const T *wd, *wf, *wb, *bb, *wie, *wiz, *whh, *bias, *wh, *wc;
-  int L, D, A, H, E;
-  int deep;
-  float inv_sqrt_l;
-};
-
-struct Tile {
-  float *h, *c, *e, *att, *alpha, *z, *xz, *gates, *tp, *logits, *scratch;
-};
-
-// Each array starts on a 16-byte boundary (pad4 floats).
-__device__ inline Tile carve(float* base, int L, int D, int A, int H, int E, int V) {
-  Tile s;
-  float* p = base;
-  s.h = p; p += pad4(H);
-  s.c = p; p += pad4(H);
-  s.e = p; p += pad4(E);
-  s.tp = p; p += pad4(E);
-  s.att = p; p += pad4(A);
-  s.alpha = p; p += pad4(L);
-  s.z = p; p += pad4(D);
-  s.xz = p; p += pad4(D);
-  s.gates = p; p += pad4(4 * H);
-  s.logits = p; p += pad4(V);
-  s.scratch = p;
-  return s;
-}
-
-// One decode step for row `row`.  On entry s.h (h rounded to T), s.c (float)
-// and s.e (the token embedding) hold the state and the block is
-// synchronised.  On exit s.h/s.c hold h', c', s.z the context, s.alpha the
-// attention weights and s.tp the deep-output pre-projection t, all float, and
-// the block is synchronised.
-template <typename T>
-__device__ void step_body(const StepArgs<T>& a, const Tile& s, int row) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int L = a.L, D = a.D, A = a.A, H = a.H, E = a.E;
-
-  // (1) att_dec = h Wd
-  gemv<T>(s.h, a.wd, H, A, s.att, false, s.scratch);
-  __syncthreads();
-  // (2) attention logits: sum_a tanh(att_enc + att_dec) wf, scaled by 1/sqrt(L)
-  for (int l = warp; l < L; l += NWARPS) {
-    const T* ae = a.att_enc + ((size_t)row * L + l) * A;
-    float acc = 0.f;
-    for (int j = lane; j < A; j += 32) acc += tanhf(ldf(ae + j) + s.att[j]) * ldf(a.wf + j);
-    acc = warp_sum(acc);
-    if (lane == 0) s.alpha[l] = acc * a.inv_sqrt_l;
-  }
-  __syncthreads();
-  // (3) softmax over L, one warp
-  if (warp == 0) {
-    float m = -INFINITY;
-    for (int l = lane; l < L; l += 32) m = fmaxf(m, s.alpha[l]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int l = lane; l < L; l += 32) {
-      const float ev = expf(s.alpha[l] - m);
-      s.alpha[l] = ev;
-      sum += ev;
-    }
-    sum = warp_sum(sum);
-    for (int l = lane; l < L; l += 32) s.alpha[l] = s.alpha[l] / sum;
-  }
-  __syncthreads();
-  // (4) context z = sum_l alpha_l annot_l, and (5) the beta GEMV h Wb
-  const T* an = a.annot + (size_t)row * L * D;
-  for (int d = tid; d < D; d += NT) {
-    float acc = 0.f;
-    for (int l = 0; l < L; ++l) acc = fmaf(s.alpha[l], ldf(an + (size_t)l * D + d), acc);
-    s.z[d] = acc;
-  }
-  gemv<T>(s.h, a.wb, H, D, s.xz, false, s.scratch);
-  __syncthreads();
-  for (int d = tid; d < D; d += NT) {
-    const float beta = sigmoidf(s.xz[d] + ldf(a.bb + d));
-    s.xz[d] = rnd<T>(beta * s.z[d]);
-  }
-  __syncthreads();
-  // (6) gates = e Wie + (beta z) Wiz + h Whh (+ bias below), order i, f, g, o
-  gemv<T>(s.e, a.wie, E, 4 * H, s.gates, false, s.scratch);
-  __syncthreads();
-  gemv<T>(s.xz, a.wiz, D, 4 * H, s.gates, true, s.scratch);
-  __syncthreads();
-  gemv<T>(s.h, a.whh, H, 4 * H, s.gates, true, s.scratch);
-  __syncthreads();
-  // (7) LSTM cell; z rounded to T for the deep-output GEMV
-  for (int j = tid; j < H; j += NT) {
-    const float* g = s.gates;
-    const float ig = sigmoidf(g[j] + ldf(a.bias + j));
-    const float fg = sigmoidf(g[H + j] + ldf(a.bias + H + j));
-    const float gg = tanhf(g[2 * H + j] + ldf(a.bias + 2 * H + j));
-    const float og = sigmoidf(g[3 * H + j] + ldf(a.bias + 3 * H + j));
-    const float cn = fg * s.c[j] + ig * gg;
-    s.c[j] = cn;
-    s.h[j] = rnd<T>(og * tanhf(cn));
-  }
-  for (int d = tid; d < D; d += NT) s.xz[d] = rnd<T>(s.z[d]);
-  __syncthreads();
-  // (8) t = tanh(e + h' Wh + z Wc), or h' Wh without deep output
-  gemv<T>(s.h, a.wh, H, E, s.tp, false, s.scratch);
-  __syncthreads();
-  if (a.deep) {
-    for (int j = tid; j < E; j += NT) s.tp[j] += s.e[j];
-    __syncthreads();
-    gemv<T>(s.xz, a.wc, D, E, s.tp, true, s.scratch);
-    __syncthreads();
-    for (int j = tid; j < E; j += NT) s.tp[j] = tanhf(s.tp[j]);
-    __syncthreads();
-  }
-}
-
-template <typename T>
-inline StepArgs<T> step_args(const void* annot, const void* att_enc, const void* const* w,
-                             int L, int D, int A, int H, int E, int deep) {
-  StepArgs<T> a;
-  a.annot = static_cast<const T*>(annot);
-  a.att_enc = static_cast<const T*>(att_enc);
-  a.wd = static_cast<const T*>(w[0]);
-  a.wf = static_cast<const T*>(w[1]);
-  a.wb = static_cast<const T*>(w[2]);
-  a.bb = static_cast<const T*>(w[3]);
-  a.wie = static_cast<const T*>(w[4]);
-  a.wiz = static_cast<const T*>(w[5]);
-  a.whh = static_cast<const T*>(w[6]);
-  a.bias = static_cast<const T*>(w[7]);
-  a.wh = static_cast<const T*>(w[8]);
-  a.wc = static_cast<const T*>(w[9]);
-  a.L = L; a.D = D; a.A = A; a.H = H; a.E = E;
-  a.deep = deep;
-  a.inv_sqrt_l = (float)pow((double)L, -0.5);  // as Python's float(L) ** -0.5
-  return a;
 }
 
 }  // namespace sat

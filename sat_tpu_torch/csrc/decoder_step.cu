@@ -6,81 +6,228 @@
 //   gates = e Wie + (beta z) Wiz + h Whh + b  (i, f, g, o) -> h', c'
 //   t = tanh(e + h' Wh + z Wc), or h' Wh without deep output
 //
-// Outputs t, h', c', z in the input type and alpha in float.  The step math
-// and the design are in decode_common.cuh.  What bounds it on an H100: every
-// block (one per row) streams the whole weight set (4.6 M values at n64) from
-// L2 through its own SM, so one step costs at least
-// weights / (one SM's L2 bandwidth) whatever the batch.
-#include "decode_common.cuh"
+// Outputs t, h', c', z in the input type and alpha (N, L) in float.  c is
+// read in the input type and c' rounded to it, as the JAX kernel does.
+//
+// Design.  The step is the four batch-wide phases of decode_phases.cuh (whose
+// comment gives what bounds them and how), between a prologue and an
+// epilogue, six kernels launched in order on the caller's stream by
+// sat_decoder_step:
+//   decoder_step_in       e, h -> the feature-major xt, yt; zero padding columns
+//   decoder_step_hside    phase 1
+//   decoder_step_attend   phase 2; alpha and z row-major
+//   decoder_step_gates    phase 3; c' and h' row-major
+//   decoder_step_deepout  phase 4
+//   decoder_step_out      t: phase 4's K slices summed in slice order, tanh(e + .)
+// Each weight is read once per step per tile of 64 rows, not once per row.
+#include "decode_phases.cuh"
 
 namespace sat {
 
+template <typename T> struct StepArgs {
+  const T* annot;    // (B, L, D)
+  const T* att_enc;  // (B, L, A)
+  const T* w1;       // (H, N1)    [Wd | Wb | Whh (gates interleaved) | 0]
+  const T* wx;       // (E + D, G) [Wie; Wiz], gates interleaved
+  const T* wo;       // (H + D, Ep) [Wh; Wc]
+  const float *wf, *bb, *bias;  // (A,), (D,), (G,) interleaved
+  const T *embed, *h, *c;       // (B, E), (B, H), (B, H)
+  T* xt;             // (E + D, Bp) [e; beta z], feature-major
+  T* yt;             // (H + D, Bp) [h; z], feature-major
+  float* g1;         // (B, N1) phase-1 output
+  float* part;       // (splits, B, Ep) phase-4 partial sums
+  T *t_out, *h_out, *c_out, *z_out;  // (B, E), (B, H), (B, H), (B, D)
+  float* alpha_out;                  // (B, L)
+  int B, Bp, L, D, A, H, E;
+  int N1, G, Ep;        // padded widths of w1, wx, wo
+  int K4, kc, splits;   // phase 4: K, K rows per split, splits
+  int deep;
+  float inv_sqrt_l;
+};
+
+constexpr int TT = 32;  // rows and features of a transpose tile in decoder_step_in
+
+// Writes e (B, E) and h (B, H) transposed into xt[0:E] and yt[0:H], one tile
+// of 32 features (of the E + H) by 32 rows per block, and zeroes the padding
+// columns [B, Bp) of every row of xt and yt: the products read Bp columns.
 template <typename T>
-__global__ void __launch_bounds__(NT, 1)
-decoder_step_kernel(StepArgs<T> a, const T* __restrict__ embed, const T* __restrict__ h,
-                    const T* __restrict__ c, T* __restrict__ t_out, T* __restrict__ h_out,
-                    T* __restrict__ c_out, T* __restrict__ z_out, float* __restrict__ alpha_out) {
-  extern __shared__ float4 smem_raw[];
-  const Tile s = carve(reinterpret_cast<float*>(smem_raw), a.L, a.D, a.A, a.H, a.E, 0);
-  const size_t row = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int H = a.H, E = a.E, D = a.D, L = a.L;
-
-  for (int j = tid; j < H; j += NT) {
-    s.h[j] = ldf(h + row * H + j);
-    s.c[j] = ldf(c + row * H + j);
+__global__ void __launch_bounds__(NT) decoder_step_in(StepArgs<T> a) {
+  __shared__ float tile[TT][TT + 1];
+  const int E = a.E, H = a.H, B = a.B, Bp = a.Bp;
+  const int tx = threadIdx.x % TT, ty = threadIdx.x / TT;
+  const int f0 = blockIdx.x * TT, r0 = blockIdx.y * TT;
+  for (int i = ty; i < TT; i += NT / TT) {
+    const int r = r0 + i, f = f0 + tx;
+    float v = 0.f;
+    if (r < B && f < E + H)
+      v = f < E ? to_f(a.embed[(size_t)r * E + f]) : to_f(a.h[(size_t)r * H + f - E]);
+    tile[i][tx] = v;
   }
-  for (int j = tid; j < E; j += NT) s.e[j] = ldf(embed + row * E + j);
   __syncthreads();
-
-  step_body<T>(a, s, (int)row);
-
-  for (int j = tid; j < E; j += NT) t_out[row * E + j] = from_f<T>(s.tp[j]);
-  for (int j = tid; j < H; j += NT) {
-    h_out[row * H + j] = from_f<T>(s.h[j]);
-    c_out[row * H + j] = from_f<T>(s.c[j]);
+  for (int i = ty; i < TT; i += NT / TT) {
+    const int f = f0 + i, r = r0 + tx;
+    if (f < E + H && r < B)
+      (f < E ? a.xt + (size_t)f * Bp : a.yt + (size_t)(f - E) * Bp)[r] =
+          from_f<T>(tile[tx][i]);
   }
-  for (int j = tid; j < D; j += NT) z_out[row * D + j] = from_f<T>(s.z[j]);
-  for (int j = tid; j < L; j += NT) alpha_out[row * L + j] = s.alpha[j];
+  const int pad = Bp - B, nx = E + a.D, rows = nx + H + a.D;
+  const int nb = gridDim.x * gridDim.y, b = blockIdx.y * gridDim.x + blockIdx.x;
+  for (int i = b * NT + threadIdx.x; i < rows * pad; i += nb * NT) {
+    const int k = i / pad, m = B + i % pad;
+    (k < nx ? a.xt + (size_t)k * Bp : a.yt + (size_t)(k - nx) * Bp)[m] = from_f<T>(0.f);
+  }
 }
 
 template <typename T>
-cudaError_t launch(const void* embed, const void* h, const void* c, const void* annot,
-                   const void* att_enc, const void* const* w, void* t_out, void* h_out,
-                   void* c_out, void* z_out, void* alpha_out, int n, int L, int D, int A,
-                   int H, int E, int deep, cudaStream_t stream) {
-  const size_t bytes = smem_floats(L, D, A, H, E, 0, Pack<T>::N) * sizeof(float);
-  auto kern = decoder_step_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
+__global__ void __launch_bounds__(NT, 2) decoder_step_hside(StepArgs<T> a) {
+  hside_body<T>(a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(ATT_SLICE) decoder_step_attend(StepArgs<T> a) {
+  const int row = blockIdx.x;
+  const float* alpha = attend_body<T>(a, row, a.z_out + (size_t)row * a.D);
+  if (blockIdx.y == 0)
+    for (int l = threadIdx.x; l < a.L; l += ATT_SLICE)
+      a.alpha_out[(size_t)row * a.L + l] = alpha[l];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT, 2) decoder_step_gates(StepArgs<T> a) {
+  gates_body<T, T>(a, a.c, a.c_out, a.h_out);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT, 2) decoder_step_deepout(StepArgs<T> a) {
+  deepout_body<T>(a);
+}
+
+// t[r][j] = the sum of phase 4's K slices in slice order, then tanh(e + .)
+// with deep output, rounded to T; one thread per element.
+template <typename T>
+__global__ void __launch_bounds__(NT) decoder_step_out(StepArgs<T> a) {
+  const int i = blockIdx.x * NT + threadIdx.x;
+  if (i >= a.B * a.E) return;
+  const int r = i / a.E, j = i % a.E;
+  float v = 0.f;
+  for (int p = 0; p < a.splits; ++p) v += a.part[((size_t)p * a.B + r) * a.Ep + j];
+  if (a.deep) v = tanhf(to_f(a.embed[i]) + v);
+  a.t_out[i] = from_f<T>(v);
+}
+
+// -- host side ---------------------------------------------------------------------
+
+// Each kernel's grid (x, y, z), threads, dynamic and static shared memory
+// bytes, in launch order: in, hside, attend, gates, deepout, out.
+template <typename T>
+void plan(int B, int L, int D, int H, int E, int N1, int G, int Ep, int splits,
+          int (&p)[6][6]) {
+  int p4[4][6];
+  plan4<T>(B, L, D, N1, G, Ep, splits, p4);
+  const int in[6] = {(E + H + TT - 1) / TT, (B + TT - 1) / TT, 1, NT, 0,
+                     (int)sizeof(float) * TT * (TT + 1)};
+  const int out[6] = {(B * E + NT - 1) / NT, 1, 1, NT, 0, 0};
+  for (int j = 0; j < 6; ++j) {
+    p[0][j] = in[j];
+    for (int i = 0; i < 4; ++i) p[i + 1][j] = p4[i][j];
+    p[5][j] = out[j];
+  }
+}
+
+template <typename T>
+cudaError_t run(const StepArgs<T>& a, cudaStream_t st) {
+  static int allowed[4][MAX_DEVICES];  // per type: see allow_smem
+  int p[6][6];
+  plan<T>(a.B, a.L, a.D, a.H, a.E, a.N1, a.G, a.Ep, a.splits, p);
+  cudaError_t err = allow_smem(decoder_step_hside<T>, p[1][4], allowed[0]);
+  if (err == cudaSuccess) err = allow_smem(decoder_step_attend<T>, p[2][4], allowed[1]);
+  if (err == cudaSuccess) err = allow_smem(decoder_step_gates<T>, p[3][4], allowed[2]);
+  if (err == cudaSuccess) err = allow_smem(decoder_step_deepout<T>, p[4][4], allowed[3]);
   if (err != cudaSuccess) return err;
-  kern<<<n, NT, bytes, stream>>>(
-      step_args<T>(annot, att_enc, w, L, D, A, H, E, deep), static_cast<const T*>(embed),
-      static_cast<const T*>(h), static_cast<const T*>(c), static_cast<T*>(t_out),
-      static_cast<T*>(h_out), static_cast<T*>(c_out), static_cast<T*>(z_out),
-      static_cast<float*>(alpha_out));
+  decoder_step_in<T><<<grid(p[0]), p[0][3], p[0][4], st>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  decoder_step_hside<T><<<grid(p[1]), p[1][3], p[1][4], st>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  decoder_step_attend<T><<<grid(p[2]), p[2][3], p[2][4], st>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  decoder_step_gates<T><<<grid(p[3]), p[3][3], p[3][4], st>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  decoder_step_deepout<T><<<grid(p[4]), p[4][3], p[4][4], st>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  decoder_step_out<T><<<grid(p[5]), p[5][3], p[5][4], st>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const void* const* in, void* const* st, void* const* out, const int* n,
+                   cudaStream_t stream) {
+  StepArgs<T> a;
+  a.embed = static_cast<const T*>(in[0]);
+  a.h = static_cast<const T*>(in[1]);
+  a.c = static_cast<const T*>(in[2]);
+  a.annot = static_cast<const T*>(in[3]);
+  a.att_enc = static_cast<const T*>(in[4]);
+  a.w1 = static_cast<const T*>(in[5]);
+  a.wx = static_cast<const T*>(in[6]);
+  a.wo = static_cast<const T*>(in[7]);
+  a.wf = static_cast<const float*>(in[8]);
+  a.bb = static_cast<const float*>(in[9]);
+  a.bias = static_cast<const float*>(in[10]);
+  a.xt = static_cast<T*>(st[0]);
+  a.yt = static_cast<T*>(st[1]);
+  a.g1 = static_cast<float*>(st[2]);
+  a.part = static_cast<float*>(st[3]);
+  a.t_out = static_cast<T*>(out[0]);
+  a.h_out = static_cast<T*>(out[1]);
+  a.c_out = static_cast<T*>(out[2]);
+  a.z_out = static_cast<T*>(out[3]);
+  a.alpha_out = static_cast<float*>(out[4]);
+  a.B = n[0]; a.Bp = n[1]; a.L = n[2]; a.D = n[3]; a.A = n[4]; a.H = n[5]; a.E = n[6];
+  a.N1 = n[7]; a.G = n[8]; a.Ep = n[9]; a.K4 = n[10]; a.kc = n[11]; a.splits = n[12];
+  a.deep = n[13];
+  a.inv_sqrt_l = (float)pow((double)a.L, -0.5);  // as Python's float(L) ** -0.5
+  return run<T>(a, stream);
 }
 
 }  // namespace sat
 
-// dtype: 0 = float32, 1 = bfloat16.  w: the 10 weights in FusedWeights order
-// (wd, wf, wb, bb, wie, wiz, whh, bias, wh, wc).  Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16.  Inputs: embed, h, c, annot, att_enc,
+// then the packed weights of kernels/decoder_step.py::LoopWeights (w1, wx,
+// wo, wf, bb, bias).  Scratch (written): xt (E+D, Bp), yt (H+D, Bp) in the
+// input type, g1 (B, N1) and part (splits, B, Ep) float32.  Outputs: t, h',
+// c', z, alpha.  Sizes B, Bp, L, D, A, H, E, N1, G, Ep, K4, kc, splits,
+// deep.  Launches 6 kernels on the stream and returns the first cudaError_t.
 extern "C" int sat_decoder_step(int dtype, const void* embed, const void* h, const void* c,
-                                const void* annot, const void* att_enc, const void* wd,
-                                const void* wf, const void* wb, const void* bb,
-                                const void* wie, const void* wiz, const void* whh,
-                                const void* bias, const void* wh, const void* wc, void* t_out,
-                                void* h_out, void* c_out, void* z_out, void* alpha_out, int n,
-                                int L, int D, int A, int H, int E, int deep, void* stream) {
-  const void* w[10] = {wd, wf, wb, bb, wie, wiz, whh, bias, wh, wc};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n <= 0) return cudaSuccess;
-  if (dtype == 0)
-    return sat::launch<float>(embed, h, c, annot, att_enc, w, t_out, h_out, c_out, z_out,
-                              alpha_out, n, L, D, A, H, E, deep, st);
-  if (dtype == 1)
-    return sat::launch<__nv_bfloat16>(embed, h, c, annot, att_enc, w, t_out, h_out, c_out,
-                                      z_out, alpha_out, n, L, D, A, H, E, deep, st);
+                                const void* annot, const void* att_enc, const void* w1,
+                                const void* wx, const void* wo, const void* wf, const void* bb,
+                                const void* bias, void* xt, void* yt, void* g1, void* part,
+                                void* t_out, void* h_out, void* c_out, void* z_out,
+                                void* alpha_out, int B, int Bp, int L, int D, int A, int H,
+                                int E, int N1, int G, int Ep, int K4, int kc, int splits,
+                                int deep, void* stream) {
+  const void* in[11] = {embed, h, c, annot, att_enc, w1, wx, wo, wf, bb, bias};
+  void* st[4] = {xt, yt, g1, part};
+  void* out[5] = {t_out, h_out, c_out, z_out, alpha_out};
+  const int n[14] = {B, Bp, L, D, A, H, E, N1, G, Ep, K4, kc, splits, deep};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0) return cudaSuccess;
+  if (dtype == 0) return sat::launch<float>(in, st, out, n, s);
+  if (dtype == 1) return sat::launch<__nv_bfloat16>(in, st, out, n, s);
   return cudaErrorInvalidValue;
+}
+
+// The launch plan of sat_decoder_step for these sizes: out[6 i + j] is
+// kernel i's grid x, y, z, threads, dynamic and static shared memory bytes.
+extern "C" int sat_decoder_step_plan(int dtype, int B, int L, int D, int H, int E, int N1,
+                                     int G, int Ep, int splits, int* out) {
+  int p[6][6];
+  if (dtype == 0)
+    sat::plan<float>(B, L, D, H, E, N1, G, Ep, splits, p);
+  else if (dtype == 1)
+    sat::plan<__nv_bfloat16>(B, L, D, H, E, N1, G, Ep, splits, p);
+  else
+    return cudaErrorInvalidValue;
+  for (int i = 0; i < 6; ++i)
+    for (int j = 0; j < 6; ++j) out[6 * i + j] = p[i][j];
+  return cudaSuccess;
 }

@@ -11,7 +11,7 @@ import torch
 
 from ..config import SATConfig
 from ..kernels.decoder_step import (fused_decoder_step, fused_output_logits,
-                                    fused_step_supported, pack_fused_weights)
+                                    fused_step_supported, step_weights)
 from ..kernels.greedy_loop import NEG_INF  # noqa: F401  (JAX's public name)
 from ..kernels.greedy_loop import (greedy_loop_decode, greedy_loop_supported,
                                    greedy_scan)
@@ -84,9 +84,9 @@ def select_fused(fused: Union[None, bool, str], device: torch.device,
         if not greedy_loop_supported(cfg, L, itemsize):
             raise ValueError("greedy loop kernel: decoder_layers must be 1 and "
                              "one row's state must fit shared memory")
-    elif fused and not fused_step_supported(cfg, L, itemsize):
-        raise ValueError("fused step kernel: decoder_layers must be 1 and "
-                         "one row's state must fit shared memory")
+    elif fused and not fused_step_supported(cfg, L):
+        raise ValueError("fused step kernels: decoder_layers must be 1 and "
+                         "L attention scores must fit shared memory")
     return fused
 
 
@@ -100,7 +100,7 @@ def greedy_decode(params, cfg: SATConfig, annotations: torch.Tensor, *,
     """Greedy captioning: beam width 1 with a plain per-step argmax.
 
     ``fused`` chooses the implementation, as in JAX: ``False`` is the plain
-    per-step PyTorch path, ``True`` the step kernel
+    per-step PyTorch path, ``True`` the step kernels
     (``kernels/decoder_step.py``) plus a matmul for the vocab projection, and
     ``"loop"`` the whole-loop phase kernels (``kernels/greedy_loop.py``).  The one
     difference from the JAX signature is the default, ``fused=None``: on a
@@ -131,12 +131,12 @@ def greedy_decode(params, cfg: SATConfig, annotations: torch.Tensor, *,
         return _result(*out, S, rescore_method, rescore_reward)
 
     if fused:
-        fw = pack_fused_weights(params, cfg, annotations.dtype)
+        lw = step_weights(params, cfg, annotations.dtype)   # once per decode
         emb = capped_embedding(params, cfg)
 
         def step(prev_embed, h, c):
             t, h1, c1, _, alpha = fused_decoder_step(
-                fw, cfg, prev_embed.contiguous(), h[0].contiguous(),
+                lw, cfg, prev_embed.contiguous(), h[0].contiguous(),
                 c[0].contiguous(), annotations, att_enc)
             return fused_output_logits(params, cfg, t, emb), h1[None], c1[None], alpha
     else:

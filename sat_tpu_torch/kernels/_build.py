@@ -7,8 +7,8 @@ with a plain C interface::
          -Xcompiler -fPIC -Xptxas=-v -o build/<name>-<hash>.so csrc/<name>.cu
 
 into ``sat_tpu_torch/build/``, named by a hash of the sources and flags, and
-loaded with ``ctypes``.  Each library exports an entry ``sat_<name>`` (and
-``greedy_loop`` its launch plan), whose C signatures ``ARGTYPES`` declares:
+loaded with ``ctypes``.  Each library exports an entry ``sat_<name>`` and
+its launch plan ``sat_<name>_plan``, whose C signatures ``ARGTYPES`` declares:
 the wrappers pass ``data_ptr()`` values and the current stream as pointers.
 Every entry returns a ``cudaError_t`` and ``check`` raises on a nonzero
 code."""
@@ -34,9 +34,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the C signature of each function that csrc/<name>.cu exports
 ARGTYPES = {
-    # dtype; embed, h, c, annot, att_enc, 10 weights, t, h', c', z,
-    # alpha; n, L, D, A, H, E, deep; stream
-    "decoder_step": {"sat_decoder_step": [_I] + [_P] * 20 + [_I] * 7 + [_P]},
+    "decoder_step": {
+        # dtype; embed, h, c, annot, att_enc, w1, wx, wo, wf, bb, bias, xt,
+        # yt, g1, part, t, h', c', z, alpha; B, Bp, L, D, A, H, E, N1, G, Ep,
+        # K4, kc, splits, deep; stream
+        "sat_decoder_step": [_I] + [_P] * 20 + [_I] * 14 + [_P],
+        # dtype, B, L, D, H, E, N1, G, Ep, splits; out (36 ints)
+        "sat_decoder_step_plan": [_I] * 10 + [ctypes.POINTER(_I)],
+    },
     "greedy_loop": {
         # dtype; annot, att_enc, w1, wx, wo, wf, bb, bias, emb, wout, bout,
         # xt, yt, c, g1, part, done, tokens, alphas, scores, flen, fin;

@@ -1,23 +1,27 @@
 """Fused decode step (attention + beta gate + LSTM cell + deep-output
-pre-projection) as one CUDA kernel, ``csrc/decoder_step.cu``.
+pre-projection) as CUDA kernels, ``csrc/decoder_step.cu``.
 
 Replaces the Pallas kernel ``sat_tpu/kernels/decoder_step.py::_kernel``
 (driven by ``fused_decoder_step``): the same function, without the TPU's
 8-row padding.  The vocabulary projection stays outside, a ``torch.matmul``
 in ``fused_output_logits``, as the JAX package leaves it to XLA.
 
-What bounds it on an H100: each block reads the whole weight set (4.6 M
-values at n64: 18 MB in f32, 9 MB in bf16) from L2 through its own SM, so a
-step costs at least weights / (one SM's L2 bandwidth) however large the
-batch.  The design gives each row a block of its own, keeps every
-intermediate in shared memory, and reads weights with 16-byte loads.
+What bounds it on an H100: a step's products read 4.6 M weights (18.6 MB in
+f32 at n64) for every row's multiply-adds.  The design runs the step as the
+batch-wide phases it shares with the greedy loop (``csrc/decode_phases.cuh``:
+three products tiled over 64 rows, and the attention per row) between a
+prologue that lays e and h out feature-major and an epilogue that finishes
+t: six kernels per step, launched by one C call, each weight read once per
+tile of 64 rows.  The phases index the packed layout ``LoopWeights``, which
+this module defines (``pack_loop_weights``) and the loop kernels share.
 
-``fused_decoder_step`` launches the kernel for CUDA tensors and runs
+``fused_decoder_step`` launches the kernels for CUDA tensors and runs
 ``fused_decoder_step_plain``, the same math in PyTorch, for CPU tensors.  It
-raises on anything the kernel does not take; it never falls back."""
+raises on anything the kernels do not take; it never falls back."""
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Tuple
 
 import torch
@@ -25,12 +29,18 @@ import torch
 from ..config import SATConfig
 from . import _build
 
-# kernel launches since import (read and reset by chip_smoke.py)
+# wrapper calls that launched the kernels, since import (read and reset by
+# chip_smoke.py)
 launches = 0
 
 MAX_SMEM = 232448      # bytes of shared memory a block may use on Hopper
-_THREADS = 256         # NT in csrc/decode_common.cuh
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels one call launches, in order (csrc/decoder_step.cu, named
+# decoder_step_<kernel>)
+KERNELS = ("in", "hside", "attend", "gates", "deepout", "out")
+# phase 4 splits its K rows into this many slices; the caller sums their
+# partial products in slice order
+DEEPOUT_SPLITS = 16
 
 
 class FusedWeights(NamedTuple):
@@ -65,21 +75,98 @@ def pack_fused_weights(params, cfg: SATConfig,
     return FusedWeights(*(w.to(dtype).contiguous() for w in ws))
 
 
-def smem_bytes(L: int, D: int, A: int, H: int, E: int, V: int = 0,
-               itemsize: int = 4) -> int:
-    """Dynamic shared memory of one block (one row); mirrors smem_floats() in
-    csrc/decode_common.cuh (V > 0 for the loop kernel's logits)."""
-    pad4 = lambda n: (n + 3) // 4 * 4
-    return 4 * (2 * pad4(H) + 2 * pad4(E) + pad4(A) + pad4(L) + 2 * pad4(D)
-                + pad4(4 * H) + pad4(V) + _THREADS * (16 // itemsize))
+def pad8(n: int) -> int:
+    """n rounded up to 8 elements: a whole number of 16-byte copies."""
+    return (n + 7) // 8 * 8
 
 
-def fused_step_supported(cfg: SATConfig, L: int, itemsize: int = 4) -> bool:
-    """The kernel's gate: one LSTM layer, and a row's state fits the shared
-    memory of an SM."""
-    return cfg.decoder_layers == 1 and smem_bytes(
-        L, cfg.encoder_dim, cfg.attention_dim, cfg.decoder_dim,
-        cfg.embed_dim, 0, itemsize) <= MAX_SMEM
+def attend_smem_bytes(L: int) -> int:
+    """Dynamic shared memory of an attend block: the row's L scores."""
+    return 4 * ((L + 3) // 4 * 4)
+
+
+def fused_step_supported(cfg: SATConfig, L: int) -> bool:
+    """The kernels' gate: one LSTM layer, and attend's L scores fit a
+    block's shared memory."""
+    return cfg.decoder_layers == 1 and attend_smem_bytes(L) <= MAX_SMEM
+
+
+class LoopWeights(NamedTuple):
+    """The step weights in the layout the phase kernels index.
+
+    Gate columns are interleaved: column ``4u + q`` of the gate matrices
+    (the Whh part of ``w1``, ``wx``, ``bias``) holds gate q (i, f, g, o) of
+    hidden unit u, which is column ``q H + u`` of the ``FusedWeights``
+    matrices (``gate_columns``), so one thread's four adjacent columns are
+    the four gates of its unit.  Column counts are padded with zeros to
+    multiples of 8 elements (``pad8``), so every row of a matrix is a whole
+    number of 16-byte copies; K rows are not padded.  Small vectors are
+    float32 holding the values of the working type."""
+    w1: torch.Tensor     # (H, N1)   phase 1: columns [0, A) Wd, [A, A+D) Wb,
+    #                       [A+D, A+D+4H) Whh interleaved; N1 = pad8(A+D+4H)
+    wx: torch.Tensor     # (E+D, G)  phase 3: rows [0, E) Wie, [E, E+D) Wiz,
+    #                       interleaved; G = pad8(4H)
+    wo: torch.Tensor     # (H+D, Ep) phase 4: rows [0, H) Wh, [H, H+D) Wc;
+    #                       Ep = pad8(E)
+    wf: torch.Tensor     # (A,)  float32 attention scorer
+    bb: torch.Tensor     # (D,)  float32 beta gate bias
+    bias: torch.Tensor   # (G,)  float32 b_ih + b_hh, interleaved
+
+
+def gate_columns(H: int, device=None) -> torch.Tensor:
+    """Index of packed gate column ``4u + q``: the ``FusedWeights`` column
+    ``q H + u`` it holds (see ``LoopWeights``)."""
+    p = torch.arange(4 * H, device=device)
+    return (p % 4) * H + p // 4
+
+
+def pack_loop_weights(fw: FusedWeights) -> LoopWeights:
+    """``FusedWeights`` -> the phase kernels' layout, in fw's type."""
+    H, A = fw.wd.shape
+    D, E = fw.wb.shape[1], fw.wie.shape[0]
+    g = gate_columns(H, fw.wd.device)
+    n1, G = pad8(A + D + 4 * H), pad8(4 * H)
+    w1 = fw.wd.new_zeros(H, n1)
+    w1[:, :A] = fw.wd
+    w1[:, A:A + D] = fw.wb
+    w1[:, A + D:A + D + 4 * H] = fw.whh[:, g]
+    wx = fw.wd.new_zeros(E + D, G)
+    wx[:E, :4 * H] = fw.wie[:, g]
+    wx[E:, :4 * H] = fw.wiz[:, g]
+    wo = fw.wd.new_zeros(H + D, pad8(E))
+    wo[:H, :E] = fw.wh
+    wo[H:, :E] = fw.wc
+    bias = torch.zeros(G, device=fw.wd.device)
+    bias[:4 * H] = fw.bias[0, g].float()
+    return LoopWeights(w1, wx, wo, fw.wf[0].float(), fw.bb[0].float(), bias)
+
+
+def unpack_loop_weights(lw: LoopWeights) -> FusedWeights:
+    """The inverse of ``pack_loop_weights``: the same tensors, bit for bit."""
+    H, A, D = lw.w1.shape[0], lw.wf.shape[0], lw.bb.shape[0]
+    E, dt = lw.wx.shape[0] - D, lw.w1.dtype
+    inv = torch.argsort(gate_columns(H, lw.w1.device))
+    gates = lambda w: w[:, :4 * H][:, inv].contiguous()
+    return FusedWeights(
+        wd=lw.w1[:, :A].contiguous(), wf=lw.wf[None].to(dt),
+        wb=lw.w1[:, A:A + D].contiguous(), bb=lw.bb[None].to(dt),
+        wie=gates(lw.wx[:E]), wiz=gates(lw.wx[E:]),
+        whh=gates(lw.w1[:, A + D:]), bias=gates(lw.bias[None]).to(dt),
+        wh=lw.wo[:H, :E].contiguous(), wc=lw.wo[H:, :E].contiguous())
+
+
+def step_weights(params, cfg: SATConfig,
+                 dtype: torch.dtype = torch.float32) -> LoopWeights:
+    """Decoder ParamTree -> the phase kernels' layout, in ``dtype``."""
+    return pack_loop_weights(pack_fused_weights(params, cfg, dtype))
+
+
+def deepout_rows(H: int, D: int, deep: bool) -> Tuple[int, int]:
+    """Phase 4's K (the rows of ``wo`` it reads: Wc only with deep output)
+    and the K rows of each of its ``DEEPOUT_SPLITS`` slices; slice s covers
+    rows [s kc, min(K, (s+1) kc))."""
+    K = H + D if deep else H
+    return K, -(-K // DEEPOUT_SPLITS)
 
 
 def step_math(w: FusedWeights, deep_output: bool, dt: torch.dtype,
@@ -108,15 +195,16 @@ def step_math(w: FusedWeights, deep_output: bool, dt: torch.dtype,
     return t, h_new, c_new, zt, alpha
 
 
-def fused_decoder_step_plain(fw: FusedWeights, cfg: SATConfig,
+def fused_decoder_step_plain(lw: LoopWeights, cfg: SATConfig,
                              prev_embed: torch.Tensor, h: torch.Tensor,
                              c: torch.Tensor, annotations: torch.Tensor,
                              att_enc: torch.Tensor
                              ) -> Tuple[torch.Tensor, ...]:
-    """The kernel's function in PyTorch: float accumulation, values rounded
-    to the input type where the kernel rounds them."""
+    """The kernels' function in PyTorch on the packed weights: float
+    accumulation, values rounded to the input type where the kernels round
+    them."""
     dt = prev_embed.dtype
-    w = FusedWeights(*(x.float() for x in fw))
+    w = FusedWeights(*(x.float() for x in unpack_loop_weights(lw)))
     t, h_new, c_new, zt, alpha = step_math(w, cfg.deep_output, dt, prev_embed,
                                            h, c, annotations, att_enc)
     return t.to(dt), h_new.to(dt), c_new.to(dt), zt.to(dt), alpha
@@ -139,11 +227,16 @@ def _check_shapes(shapes) -> None:
             raise ValueError(f"{name}: shape {tuple(got)}, expected {tuple(want)}")
 
 
-def check_weights(fw: FusedWeights, D: int, A: int, H: int, E: int) -> None:
-    want = dict(wd=(H, A), wf=(1, A), wb=(H, D), bb=(1, D), wie=(E, 4 * H),
-                wiz=(D, 4 * H), whh=(H, 4 * H), bias=(1, 4 * H), wh=(H, E),
-                wc=(D, E))
-    _check_shapes({k: (getattr(fw, k).shape, v) for k, v in want.items()})
+def check_loop_weights(lw: LoopWeights, D: int, A: int, H: int, E: int,
+                       dt: torch.dtype, device: torch.device) -> None:
+    """Types, devices, shapes and 16-byte alignment of the packed weights."""
+    _check(dict(w1=lw.w1, wx=lw.wx, wo=lw.wo), dt, device)
+    _check(dict(wf=lw.wf, bb=lw.bb, bias=lw.bias), torch.float32, device)
+    want = dict(w1=(H, pad8(A + D + 4 * H)), wx=(E + D, pad8(4 * H)),
+                wo=(H + D, pad8(E)), wf=(A,), bb=(D,), bias=(pad8(4 * H),))
+    _check_shapes({k: (getattr(lw, k).shape, v) for k, v in want.items()})
+    if any(x.data_ptr() % 16 for x in (lw.w1, lw.wx, lw.wo)):
+        raise ValueError("packed weights must be 16-byte aligned")
 
 
 def ptrs(*tensors: torch.Tensor) -> Tuple[int, ...]:
@@ -154,18 +247,34 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def fused_decoder_step(fw: FusedWeights, cfg: SATConfig,
+def step_plan(B: int, L: int, D: int, A: int, H: int, E: int,
+              dtype: torch.dtype = torch.float32):
+    """The launch plan of one call, as the C side computes it: for each
+    kernel of ``KERNELS``, (grid (x, y, z), threads, dynamic and static
+    shared memory bytes).  Needs the built library."""
+    lib = _build.load("decoder_step")
+    out = (ctypes.c_int * 36)()
+    _build.check(lib, lib.sat_decoder_step_plan(
+        _DTYPES[dtype], B, L, D, H, E, pad8(A + D + 4 * H), pad8(4 * H),
+        pad8(E), DEEPOUT_SPLITS, out), "decoder_step plan")
+    return {name: (tuple(out[6 * i:6 * i + 3]), out[6 * i + 3],
+                   out[6 * i + 4], out[6 * i + 5])
+            for i, name in enumerate(KERNELS)}
+
+
+def fused_decoder_step(lw: LoopWeights, cfg: SATConfig,
                        prev_embed: torch.Tensor, h: torch.Tensor,
                        c: torch.Tensor, annotations: torch.Tensor,
                        att_enc: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """One fused decode step minus the vocab projection.
+    """One fused decode step minus the vocab projection, on weights in the
+    phase kernels' layout (``step_weights``).
 
     prev_embed (N, E); h, c (N, H); annotations (N, L, D); att_enc (N, L, A).
     Returns (t (N, E), h', c', zt (N, D)) in the input type and alpha (N, L)
     float32; ``logits = fused_output_logits(t)``."""
     global launches
     if prev_embed.device.type == "cpu":
-        return fused_decoder_step_plain(fw, cfg, prev_embed, h, c,
+        return fused_decoder_step_plain(lw, cfg, prev_embed, h, c,
                                         annotations, att_enc)
     if prev_embed.device.type != "cuda":
         raise ValueError(f"no kernel for device {prev_embed.device}")
@@ -173,13 +282,21 @@ def fused_decoder_step(fw: FusedWeights, cfg: SATConfig,
     E, H, A = prev_embed.shape[-1], h.shape[-1], att_enc.shape[-1]
     dt, dev = prev_embed.dtype, prev_embed.device
     _check(dict(prev_embed=prev_embed, h=h, c=c, annotations=annotations,
-                att_enc=att_enc, **fw._asdict()), dt, dev)
+                att_enc=att_enc), dt, dev)
     _check_shapes(dict(prev_embed=(prev_embed.shape, (n, E)), h=(h.shape, (n, H)),
                        c=(c.shape, (n, H)), att_enc=(att_enc.shape, (n, L, A))))
-    check_weights(fw, D, A, H, E)
-    if smem_bytes(L, D, A, H, E, 0, prev_embed.element_size()) > MAX_SMEM:
-        raise ValueError("fused step: one row's state exceeds shared memory")
+    check_loop_weights(lw, D, A, H, E, dt, dev)
+    if attend_smem_bytes(L) > MAX_SMEM:
+        raise ValueError("fused step: L attention scores exceed shared memory")
+    n1, G, Ep = lw.w1.shape[1], lw.wx.shape[1], lw.wo.shape[1]
+    K4, kc = deepout_rows(H, D, cfg.deep_output)
+    bp = pad8(n)
 
+    # scratch: feature-major [e; beta z] and [h; z], the products' float32 sums
+    xt = torch.empty(E + D, bp, dtype=dt, device=dev)
+    yt = torch.empty(H + D, bp, dtype=dt, device=dev)
+    g1 = torch.empty(n, n1, dtype=torch.float32, device=dev)
+    part = torch.empty(DEEPOUT_SPLITS, n, Ep, dtype=torch.float32, device=dev)
     t = torch.empty(n, E, dtype=dt, device=dev)
     h_new = torch.empty(n, H, dtype=dt, device=dev)
     c_new = torch.empty(n, H, dtype=dt, device=dev)
@@ -188,10 +305,11 @@ def fused_decoder_step(fw: FusedWeights, cfg: SATConfig,
     lib = _build.load("decoder_step")
     with torch.cuda.device(dev):
         err = lib.sat_decoder_step(
-            _DTYPES[dt], *ptrs(prev_embed, h, c, annotations, att_enc, *fw,
-                  t, h_new, c_new, zt, alpha),
-            n, L, D, A, H, E, int(cfg.deep_output), stream_ptr(dev))
-    _build.check(lib, err, "decoder_step kernel")
+            _DTYPES[dt], *ptrs(prev_embed, h, c, annotations, att_enc, *lw,
+                               xt, yt, g1, part, t, h_new, c_new, zt, alpha),
+            n, bp, L, D, A, H, E, n1, G, Ep, K4, kc, DEEPOUT_SPLITS,
+            int(cfg.deep_output), stream_ptr(dev))
+    _build.check(lib, err, "decoder_step kernels")
     launches += 1
     return t, h_new, c_new, zt, alpha
 

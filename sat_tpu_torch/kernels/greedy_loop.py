@@ -18,11 +18,12 @@ the 13 MB VMEM gate.
 Design: one decode step for all B rows is five kernels (attention-side
 product, attention, gate product with the LSTM cell, deep-output product,
 selection), launched 5 (S+1) times on the current stream by one C call.  The
-three products are tiled over 64 rows, so each weight is read once per step
-per tile of 64 rows; the kernel boundaries stand in for grid-wide barriers,
-and a device count of finished rows makes every later kernel return at once
-when the whole batch has finished.  ``pack_loop_weights`` fixes the layout
-the kernels index.
+first four are the phases the fused step runs too (``csrc/decode_phases.cuh``):
+the three products are tiled over 64 rows, so each weight is read once per
+step per tile of 64 rows.  The kernel boundaries stand in for grid-wide
+barriers, and a device count of finished rows makes every later kernel
+return at once when the whole batch has finished.
+``decoder_step.pack_loop_weights`` fixes the layout the kernels index.
 
 ``greedy_loop_decode`` launches the kernels for CUDA tensors and runs
 ``greedy_loop_plain``, the same function in PyTorch, for CPU tensors.  It
@@ -31,31 +32,26 @@ raises on anything the kernels do not take; it never falls back."""
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import Tuple
 
 import torch
 
 from ..config import SATConfig
 from ..models.decoder import capped_embedding
 from . import _build
-from .decoder_step import (MAX_SMEM, _DTYPES, _THREADS, FusedWeights, _check,
-                           _check_shapes, pack_fused_weights, ptrs, step_math,
-                           stream_ptr)
+from .decoder_step import (DEEPOUT_SPLITS, MAX_SMEM, _DTYPES, FusedWeights,
+                           LoopWeights, _check, _check_shapes,
+                           attend_smem_bytes, check_loop_weights, deepout_rows,
+                           pad8, ptrs, step_math, step_weights, stream_ptr,
+                           unpack_loop_weights)
 
 # wrapper calls that launched the kernels, since import (read and reset by
 # chip_smoke.py)
 launches = 0
 
 NEG_INF = -1e9
-# phase 4 splits its K rows into this many slices; phase 5 sums their
-# partial products in slice order
-DEEPOUT_SPLITS = 16
 PHASES = ("hside", "attend", "gates", "deepout", "select")
-
-
-def pad8(n: int) -> int:
-    """n rounded up to 8 elements: a whole number of 16-byte copies."""
-    return (n + 7) // 8 * 8
+_THREADS = 256         # NT in csrc/decode_common.cuh
 
 
 def _pad4(n: int) -> int:
@@ -69,7 +65,7 @@ def select_smem_bytes(E: int, V: int, itemsize: int = 4) -> int:
 
 
 def _fits(L: int, E: int, V: int, itemsize: int) -> bool:
-    return (4 * _pad4(L) <= MAX_SMEM
+    return (attend_smem_bytes(L) <= MAX_SMEM
             and select_smem_bytes(E, V, itemsize) <= MAX_SMEM)
 
 
@@ -133,82 +129,10 @@ def greedy_scan(step, embed, cfg: SATConfig, h, c, L: int, *,
     return tokens, alphas, scores, flen, finished
 
 
-class LoopWeights(NamedTuple):
-    """The step weights in the layout the phase kernels index.
-
-    Gate columns are interleaved: column ``4u + q`` of the gate matrices
-    (the Whh part of ``w1``, ``wx``, ``bias``) holds gate q (i, f, g, o) of
-    hidden unit u, which is column ``q H + u`` of the ``FusedWeights``
-    matrices (``gate_columns``), so one thread's four adjacent columns are
-    the four gates of its unit.  Column counts are padded with zeros to
-    multiples of 8 elements (``pad8``), so every row of a matrix is a whole
-    number of 16-byte copies; K rows are not padded.  Small vectors are
-    float32 holding the values of the working type."""
-    w1: torch.Tensor     # (H, N1)   phase 1: columns [0, A) Wd, [A, A+D) Wb,
-    #                       [A+D, A+D+4H) Whh interleaved; N1 = pad8(A+D+4H)
-    wx: torch.Tensor     # (E+D, G)  phase 3: rows [0, E) Wie, [E, E+D) Wiz,
-    #                       interleaved; G = pad8(4H)
-    wo: torch.Tensor     # (H+D, Ep) phase 4: rows [0, H) Wh, [H, H+D) Wc;
-    #                       Ep = pad8(E)
-    wf: torch.Tensor     # (A,)  float32 attention scorer
-    bb: torch.Tensor     # (D,)  float32 beta gate bias
-    bias: torch.Tensor   # (G,)  float32 b_ih + b_hh, interleaved
-
-
-def gate_columns(H: int, device=None) -> torch.Tensor:
-    """Index of packed gate column ``4u + q``: the ``FusedWeights`` column
-    ``q H + u`` it holds (see ``LoopWeights``)."""
-    p = torch.arange(4 * H, device=device)
-    return (p % 4) * H + p // 4
-
-
-def pack_loop_weights(fw: FusedWeights) -> LoopWeights:
-    """``FusedWeights`` -> the phase kernels' layout, in fw's type."""
-    H, A = fw.wd.shape
-    D, E = fw.wb.shape[1], fw.wie.shape[0]
-    g = gate_columns(H, fw.wd.device)
-    n1, G = pad8(A + D + 4 * H), pad8(4 * H)
-    w1 = fw.wd.new_zeros(H, n1)
-    w1[:, :A] = fw.wd
-    w1[:, A:A + D] = fw.wb
-    w1[:, A + D:A + D + 4 * H] = fw.whh[:, g]
-    wx = fw.wd.new_zeros(E + D, G)
-    wx[:E, :4 * H] = fw.wie[:, g]
-    wx[E:, :4 * H] = fw.wiz[:, g]
-    wo = fw.wd.new_zeros(H + D, pad8(E))
-    wo[:H, :E] = fw.wh
-    wo[H:, :E] = fw.wc
-    bias = torch.zeros(G, device=fw.wd.device)
-    bias[:4 * H] = fw.bias[0, g].float()
-    return LoopWeights(w1, wx, wo, fw.wf[0].float(), fw.bb[0].float(), bias)
-
-
-def unpack_loop_weights(lw: LoopWeights) -> FusedWeights:
-    """The inverse of ``pack_loop_weights``: the same tensors, bit for bit."""
-    H, A, D = lw.w1.shape[0], lw.wf.shape[0], lw.bb.shape[0]
-    E, dt = lw.wx.shape[0] - D, lw.w1.dtype
-    inv = torch.argsort(gate_columns(H, lw.w1.device))
-    gates = lambda w: w[:, :4 * H][:, inv].contiguous()
-    return FusedWeights(
-        wd=lw.w1[:, :A].contiguous(), wf=lw.wf[None].to(dt),
-        wb=lw.w1[:, A:A + D].contiguous(), bb=lw.bb[None].to(dt),
-        wie=gates(lw.wx[:E]), wiz=gates(lw.wx[E:]),
-        whh=gates(lw.w1[:, A + D:]), bias=gates(lw.bias[None]).to(dt),
-        wh=lw.wo[:H, :E].contiguous(), wc=lw.wo[H:, :E].contiguous())
-
-
-def deepout_rows(H: int, D: int, deep: bool) -> Tuple[int, int]:
-    """Phase 4's K (the rows of ``wo`` it reads: Wc only with deep output)
-    and the K rows of each of its ``DEEPOUT_SPLITS`` slices; slice s covers
-    rows [s kc, min(K, (s+1) kc))."""
-    K = H + D if deep else H
-    return K, -(-K // DEEPOUT_SPLITS)
-
-
 def loop_weights(params, cfg: SATConfig, dtype: torch.dtype):
     """(LoopWeights, capped embedding table (V, E), Wout (E, V), bout (V,)
     f32), all in ``dtype`` apart from the float32 vectors."""
-    lw = pack_loop_weights(pack_fused_weights(params, cfg, dtype))
+    lw = step_weights(params, cfg, dtype)
     emb = capped_embedding(params, cfg)
     if cfg.weight_tying and cfg.deep_output:
         wout = emb.T
@@ -272,12 +196,6 @@ def loop_plan(B: int, L: int, D: int, A: int, H: int, E: int, V: int,
             for i, name in enumerate(PHASES)}
 
 
-def check_loop_weights(lw: LoopWeights, D: int, A: int, H: int, E: int) -> None:
-    want = dict(w1=(H, pad8(A + D + 4 * H)), wx=(E + D, pad8(4 * H)),
-                wo=(H + D, pad8(E)), wf=(A,), bb=(D,), bias=(pad8(4 * H),))
-    _check_shapes({k: (getattr(lw, k).shape, v) for k, v in want.items()})
-
-
 def greedy_loop(fw: LoopWeights, emb: torch.Tensor, wout: torch.Tensor,
                 bout: torch.Tensor, cfg: SATConfig, annotations: torch.Tensor,
                 att_enc: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor, *,
@@ -310,14 +228,12 @@ def run_loop(lw: LoopWeights, emb, wout, bout, cfg: SATConfig, annotations,
     b, L, D = annotations.shape
     H, A, E, V, S = h0.shape[-1], att_enc.shape[-1], emb.shape[1], emb.shape[0], max_gen_length
     _check(dict(annotations=annotations, att_enc=att_enc, h0=h0, c0=c0,
-                emb=emb, wout=wout, w1=lw.w1, wx=lw.wx, wo=lw.wo), dt, dev)
-    _check(dict(bout=bout, wf=lw.wf, bb=lw.bb, bias=lw.bias), torch.float32, dev)
+                emb=emb, wout=wout), dt, dev)
+    _check(dict(bout=bout), torch.float32, dev)
     _check_shapes(dict(att_enc=(att_enc.shape, (b, L, A)), h0=(h0.shape, (b, H)),
                        c0=(c0.shape, (b, H)), wout=(wout.shape, (E, V)),
                        bout=(bout.shape, (V,)), done=(done.shape, (1,))))
-    check_loop_weights(lw, D, A, H, E)
-    if any(x.data_ptr() % 16 for x in (lw.w1, lw.wx, lw.wo)):
-        raise ValueError("greedy loop: packed weights must be 16-byte aligned")
+    check_loop_weights(lw, D, A, H, E, dt, dev)
     if not _fits(L, E, V, annotations.element_size()):
         raise ValueError("greedy loop: a row's state exceeds shared memory")
     start_i, end_i, pad_i, unk_i = _special(cfg)

@@ -64,9 +64,25 @@ LOOP_SHAPES = SHAPES + [
     (256, 1024, 128, 512, 97, 49, 1),
     (256, 1024, 128, 512, 97, 49, 65),
 ]
+# the step kernels also at three 64-row tiles (beam search's B k rows)
+STEP_SHAPES = LOOP_SHAPES + [(256, 1024, 128, 512, 97, 49, 192)]
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+def device_kernels(fn):
+    """fn()'s result and the names of the kernels it ran on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the first kernel of a profiled window can go unrecorded: start with
+        # one that is not counted
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("shape", STEP_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("deep", [True, False])
 def test_step_kernel(shape, dtype, deep):
@@ -80,12 +96,16 @@ def test_step_kernel(shape, dtype, deep):
     e = torch.randn(B, E, generator=g).to(dev, dtype)
     h = torch.randn(B, H, generator=g).to(dev, dtype)
     c = torch.randn(B, H, generator=g).to(dev, dtype)
-    fw = KS.pack_fused_weights(p, cfg, dtype)
+    lw = KS.step_weights(p, cfg, dtype)
     n0 = KS.launches
-    got = KS.fused_decoder_step(fw, cfg, e, h, c, a, att_enc)
-    ref = KS.fused_decoder_step_plain(fw, cfg, e, h, c, a, att_enc)
+    got, names = device_kernels(lambda: KS.fused_decoder_step(lw, cfg, e, h, c, a, att_enc))
+    ref = KS.fused_decoder_step_plain(lw, cfg, e, h, c, a, att_enc)
     torch.cuda.synchronize()
     assert KS.launches == n0 + 1
+    # one wrapper call launches each of its kernels once, and no other of ours
+    assert sum("decoder_step_" in n for n in names) == len(KS.KERNELS), names
+    for k in KS.KERNELS:
+        assert sum(f"decoder_step_{k}" in n for n in names) == 1, (k, names)
     for x, y in zip(got, ref):
         scale = max(1.0, y.float().abs().max().item())
         # bf16 outputs may differ by one rounding step of the output type
@@ -158,10 +178,10 @@ def test_wrapper_rejects_bad_input():
     a = torch.randn(4, 3, 16, device=dev)
     att_enc = TD.attention_precompute(p, a)
     h, c = TD.init_lstm_state(p, a, cfg)
-    fw = KS.pack_fused_weights(p, cfg)
+    lw = KS.step_weights(p, cfg)
     e = torch.randn(4, 8, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
-        KS.fused_decoder_step(fw, cfg, e, h[0], c[0], a, att_enc)   # h[0] strided
+        KS.fused_decoder_step(lw, cfg, e, h[0], c[0], a, att_enc)   # h[0] strided
     with pytest.raises(ValueError, match="float16"):
-        KS.fused_decoder_step(fw, cfg, e.half(), h[0].half(), c[0].half(),
+        KS.fused_decoder_step(lw, cfg, e.half(), h[0].half(), c[0].half(),
                               a.half(), att_enc.half())

@@ -61,9 +61,9 @@ def test_step_plain_matches_jax(deep, tying):
     pal = JK.fused_decoder_step(JK.pack_fused_weights(jp, jcfg), jcfg, J(e),
                                 J(h[0]), J(c[0]), J(a), j_enc, interpret=True)
 
-    fw = KS.pack_fused_weights(tp, tcfg)
+    lw = KS.step_weights(tp, tcfg)
     t_enc = TD.attention_precompute(tp, T(a))
-    got = KS.fused_decoder_step_plain(fw, tcfg, T(e), T(h[0]), T(c[0]), T(a), t_enc)
+    got = KS.fused_decoder_step_plain(lw, tcfg, T(e), T(h[0]), T(c[0]), T(a), t_enc)
     logits = KS.fused_output_logits(tp, tcfg, got[0], TD.capped_embedding(tp, tcfg))
     for g, r in zip(got[1:], (ref_h[0], ref_c[0], ref_z, ref_alpha)):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0, atol=1e-5)
@@ -71,6 +71,29 @@ def test_step_plain_matches_jax(deep, tying):
                                atol=1e-5)
     for g, r in zip(got, pal):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [1, 9, 70])
+@pytest.mark.parametrize("deep", [True, False])
+def test_step_plain_on_packed_weights_matches_pallas(n, deep):
+    """The step kernels' plain version, on the packed weights the phase
+    kernels index, against the Pallas step kernel in interpret mode: one row,
+    rows past the TPU's 8-row tile and past the port's 64-row tile.  Float32
+    sums in another order: 1e-5."""
+    jcfg, tcfg, jp, tp = make(deep=deep)
+    rng = np.random.default_rng(n)
+    L, E, D, H = 6, jcfg.embed_dim, jcfg.encoder_dim, jcfg.decoder_dim
+    a = rng.normal(size=(n, L, D)).astype(np.float32)
+    e, h, c = (rng.normal(size=(n, k)).astype(np.float32) for k in (E, H, H))
+    att_enc = np.array(JD.attention_precompute(jp, J(a)))
+    ref = JK.fused_decoder_step(JK.pack_fused_weights(jp, jcfg), jcfg, J(e), J(h),
+                                J(c), J(a), J(att_enc), interpret=True)
+    got = KS.fused_decoder_step_plain(KS.step_weights(tp, tcfg), tcfg, T(e), T(h),
+                                      T(c), T(a), T(att_enc))
+    for name, g, r in zip(("t", "h'", "c'", "z", "alpha"), got, ref):
+        assert g.shape == r.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0, atol=1e-5,
+                                   err_msg=name)
 
 
 def _jax_run(jp, jcfg, a, S, temperature, fused=False):
@@ -140,9 +163,9 @@ def test_cpu_tensors_take_the_plain_version():
     att_enc = TD.attention_precompute(tp, a)
     h, c = TD.init_lstm_state(tp, a, tcfg)
     e = TD.embed_tokens(tp, torch.tensor([28] * 6), tcfg)
-    fw = KS.pack_fused_weights(tp, tcfg)
-    got = KS.fused_decoder_step(fw, tcfg, e, h[0], c[0], a, att_enc)
-    ref = KS.fused_decoder_step_plain(fw, tcfg, e, h[0], c[0], a, att_enc)
+    lw = KS.step_weights(tp, tcfg)
+    got = KS.fused_decoder_step(lw, tcfg, e, h[0], c[0], a, att_enc)
+    ref = KS.fused_decoder_step_plain(lw, tcfg, e, h[0], c[0], a, att_enc)
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
     loop = KL.greedy_loop_decode(tp, tcfg, a, att_enc, h[0].contiguous(),
@@ -164,9 +187,9 @@ def test_other_devices_raise():
     with pytest.raises(ValueError, match="no kernel"):
         KL.greedy_loop_decode(meta, tcfg, a, att_enc, h[0], c[0],
                               max_gen_length=3)
-    fw = KS.pack_fused_weights(meta, tcfg)
+    lw = KS.step_weights(meta, tcfg)
     with pytest.raises(ValueError, match="no kernel"):
-        KS.fused_decoder_step(fw, tcfg, torch.zeros(6, 10, device="meta"),
+        KS.fused_decoder_step(lw, tcfg, torch.zeros(6, 10, device="meta"),
                               h[0], c[0], a, att_enc)
 
 
@@ -181,9 +204,10 @@ def test_gates():
     assert not KS.fused_step_supported(n64.replace(decoder_layers=2), 49)
     big = n64.replace(vocab_size=60000)  # the logits row alone is 240 KB
     assert not KL.greedy_loop_supported(big, 196)
-    # one n64 row needs about 27 KB in either type
-    assert KS.smem_bytes(49, 1024, 128, 512, 256, 97) < 32 * 1024
-    assert KS.smem_bytes(49, 1024, 128, 512, 256, 97, 2) < 32 * 1024
+    # the step keeps no logits: only attend's L scores per block count
+    assert KS.fused_step_supported(big, 196)
+    assert KS.fused_step_supported(n64, 58112)       # 232,448 bytes of scores
+    assert not KS.fused_step_supported(n64, 58113)
 
 
 def test_two_layer_default_is_plain():

@@ -1,7 +1,7 @@
-"""The loop kernels' weight layout (``kernels/greedy_loop.py::LoopWeights``),
+"""The phase kernels' weight layout (``kernels/decoder_step.py::LoopWeights``),
 held on the CPU against the step it must compute.
 
-``layout_step`` follows the layout phase by phase as ``csrc/greedy_loop.cu``
+``layout_step`` follows the layout phase by phase as ``csrc/decode_phases.cuh``
 indexes it: the phase-1 product and its column ranges, the gate-interleaved
 phase-3 product with the LSTM cell on columns 4u..4u+3, and phase 4's split-K
 partial products summed in slice order.  It is held against ``step_math`` on
@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from sat_tpu_torch.config import SATConfig
+from sat_tpu_torch.kernels import decoder_step as KS
 from sat_tpu_torch.kernels import greedy_loop as KL
 from sat_tpu_torch.kernels.decoder_step import (FusedWeights,
                                                 pack_fused_weights, step_math)
@@ -60,7 +61,7 @@ def inputs(rng, cfg, B, L, dtype):
     return n(B, E).to(dtype), torch.tanh(n(B, H)).to(dtype), n(B, H), a, att_enc
 
 
-def layout_step(lw: KL.LoopWeights, deep: bool, dt, e, h, c, annotations,
+def layout_step(lw: KS.LoopWeights, deep: bool, dt, e, h, c, annotations,
                 att_enc):
     """One step from the packed tensors, phase by phase as the kernels index
     them.  Returns float32 (gates in FusedWeights column order, h', c', t
@@ -85,16 +86,16 @@ def layout_step(lw: KL.LoopWeights, deep: bool, dt, e, h, c, annotations,
     # 4. deepout: partial products of [h' | z] wo over the K slices, summed
     # in slice order by 5. select
     y = torch.cat([h_new, rnd(z)], 1)
-    K, kc = KL.deepout_rows(H, D, deep)
+    K, kc = KS.deepout_rows(H, D, deep)
     acc = torch.zeros(B, lw.wo.shape[1])
-    for sl in range(KL.DEEPOUT_SPLITS):
+    for sl in range(KS.DEEPOUT_SPLITS):
         k0 = min(K, sl * kc)
         k1 = min(K, k0 + kc)
         acc = acc + y[:, k0:k1] @ lw.wo[k0:k1].float()
     t = acc[:, :E]
     if deep:
         t = torch.tanh(e + t)
-    inv = torch.argsort(KL.gate_columns(H))
+    inv = torch.argsort(KS.gate_columns(H))
     return gates[:, inv], h_new, c_new, rnd(t)
 
 
@@ -134,8 +135,8 @@ def test_unpack_gives_back_fused_weights(widths, dtype, deep):
     E, D, A, H, V, L, B = widths
     cfg, params, _ = make(E, D, A, H, V, deep=deep)
     fw = pack_fused_weights(params, cfg, dtype)
-    lw = KL.pack_loop_weights(fw)
-    back = KL.unpack_loop_weights(lw)
+    lw = KS.pack_loop_weights(fw)
+    back = KS.unpack_loop_weights(lw)
     for name in FusedWeights._fields:
         a, b = getattr(back, name), getattr(fw, name)
         assert a.dtype == b.dtype and a.shape == b.shape, name
@@ -148,7 +149,7 @@ def test_unpack_gives_back_fused_weights(widths, dtype, deep):
 @pytest.mark.parametrize("H", [1, 3, 12, 512])
 def test_gate_columns_interleave_units(H):
     """Packed column 4u + q holds gate q of unit u, and every column once."""
-    g = KL.gate_columns(H)
+    g = KS.gate_columns(H)
     assert sorted(g.tolist()) == list(range(4 * H))
     for u in range(min(H, 5)):
         assert g[4 * u:4 * u + 4].tolist() == [q * H + u for q in range(4)]
@@ -160,14 +161,14 @@ def test_layout_pads_columns_to_whole_copies():
     E, D, A, H, V = 10, 36, 9, 13, 29
     cfg, params, _ = make(E, D, A, H, V)
     lw, *_ = KL.loop_weights(params, cfg, torch.bfloat16)
-    assert lw.w1.shape == (H, KL.pad8(A + D + 4 * H))
-    assert lw.wx.shape == (E + D, KL.pad8(4 * H))
-    assert lw.wo.shape == (H + D, KL.pad8(E))
+    assert lw.w1.shape == (H, KS.pad8(A + D + 4 * H))
+    assert lw.wx.shape == (E + D, KS.pad8(4 * H))
+    assert lw.wo.shape == (H + D, KS.pad8(E))
     for w, n in ((lw.w1, A + D + 4 * H), (lw.wx, 4 * H), (lw.wo, E), (lw.bias, 4 * H)):
         assert w.shape[-1] % 8 == 0 and not w[..., n:].any()
     for deep, K in ((True, H + D), (False, H)):
-        k, kc = KL.deepout_rows(H, D, deep)
-        rows = [r for s in range(KL.DEEPOUT_SPLITS)
+        k, kc = KS.deepout_rows(H, D, deep)
+        rows = [r for s in range(KS.DEEPOUT_SPLITS)
                 for r in range(min(k, s * kc), min(k, s * kc + kc))]
         assert k == K and rows == list(range(K))   # each K row in one slice
 
