@@ -17,16 +17,23 @@ Phases, each of which fails the run (nonzero exit, no result line):
    n64 weights, B = 64, at the shapes of the main path, then at other shapes
    that take the kernels' other code paths (B = 192 and 300 at n64, the
    golden checkpoint's narrow widths at B = 13, and the step in bfloat16);
-4. main path: load the n64 checkpoint, encode 64 seeded 224 px images, greedy
-   captioning through the loop kernel (default), the step kernel
+4. greedy path: load the n64 checkpoint, encode 64 seeded 224 px images,
+   greedy captioning through the loop kernel (default), the step kernel
    (``fused=True``) and the plain path (``fused=False``), with launch counts
    read around that run, captions, and agreement with the CPU;
-5. the same in bfloat16 (token agreement with float32 printed, not asserted);
-6. times, with CUDA events after a warm-up, the median of several runs: each
-   kernel and its plain version per call (the ``kernels`` line), and greedy
-   captioning end to end (encode + decode, images/s); beside them the busy
-   device time per call from torch.profiler, each loop phase's busy time
-   per decode and each step kernel's busy time per call.
+5. beam path, the one users run: ``SATModel.caption`` at beamk 3, LN,
+   f32, whose ``beam_search`` takes the step kernels at B k = 192 rows by
+   default, with launch counts read around that run; ``beam_search`` with
+   the kernels and with ``fused=False`` (result shapes, finite scores, best
+   captions equal on >= 99 % of images, the first 4 equal to the CPU run's);
+6. both paths in bfloat16, beam search at the serving setting (beamk 3, LN,
+   early exit) (token agreement with float32 printed, not asserted);
+7. times, with CUDA events after a warm-up, the median of several runs: each
+   kernel and its plain version per call (the ``kernels`` line: the step at
+   the beam path's 192 rows), and greedy and beam captioning end to end
+   (encode + decode, images/s); beside them the busy device time per call
+   from torch.profiler, each loop phase's busy time per decode and each step
+   kernel's busy time per call at 64 and 192 rows.
 
 The last three lines of standard output are ``[report]`` with every number
 of the run as JSON, the ``kernels`` JSON line and
@@ -51,7 +58,8 @@ CKPT = os.path.join(ROOT, "tests", "data", "best_n64_r4_serving.ckpt")
 GOLDEN = os.path.join(ROOT, "tests", "data", "golden_v1.ckpt")
 DEVICE = "cuda"
 B, S = 64, 20
-B_BEAM = 192   # beam search's B k rows at beamk 3: three 64-row tiles
+K_BEAM = 3     # beam width of the beam path (the serving default)
+B_BEAM = B * K_BEAM   # beam search's B k rows: three 64-row tiles
 B_WIDE = 300   # five 64-row tiles, more rows than an H100 has SMs
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
@@ -140,24 +148,38 @@ def host_ms(fn, calls=20, reps=5):
     return statistics.median(times)
 
 
-def device_ms(fn, name=None, calls=10):
-    """Busy device time per call, from torch.profiler (CUPTI): the kernels
-    whose name contains ``name``, or every kernel fn launches; host gaps
-    between launches are not counted.  None where the profiler records no
-    device time."""
+def device_times(fn, calls=10):
+    """Busy device time per call of each kernel fn launches, in ms by kernel
+    name, from one torch.profiler (CUPTI) window of ``calls`` calls; host
+    gaps between launches are not counted.  Device activity only: host
+    operations are not recorded (a beam decode runs thousands)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.device_time_total for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and (name is None or name in e.name))
-    return total_us / calls / 1e3 if total_us > 0 else None
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + e.device_time_total / calls / 1e3
+    return out
+
+
+def busy_of(times, name=None):
+    """The busy ms of the kernels in ``times`` whose name contains ``name``
+    (all of them for None); None where the profiler recorded none."""
+    total = sum(ms for k, ms in times.items() if name is None or name in k)
+    return total if total > 0 else None
+
+
+def device_ms(fn, name=None, calls=10):
+    """Busy device time per call of the kernels whose name contains
+    ``name``, or of every kernel fn launches (``device_times``)."""
+    return busy_of(device_times(fn, calls), name)
 
 
 def ptxas_summary(log):
@@ -208,6 +230,11 @@ def agreement(a, b):
             & (a.lengths[:, 0] == b.lengths[:, 0]))
 
 
+def same_share(a, b):
+    """The share of images whose best captions are equal."""
+    return sum(x == y for x, y in zip(a, b)) / len(a)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -215,14 +242,14 @@ def main():
         return 2
     sys.path.insert(0, ROOT)
     from sat_tpu_torch.decode.api import unpack_beam_result
-    from sat_tpu_torch.decode.beam import greedy_decode
+    from sat_tpu_torch.decode.beam import beam_search, greedy_decode
     from sat_tpu_torch.kernels import _build
     from sat_tpu_torch.kernels import decoder_step as KS
     from sat_tpu_torch.kernels import greedy_loop as KL
     from sat_tpu_torch.models import decoder as TD
     from sat_tpu_torch.train.checkpoints import load_model_from_checkpoint
 
-    report = {}
+    report, stamps = {}, {"device": time.perf_counter()}
     dev = torch.device(DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -236,6 +263,7 @@ def main():
     report["card"] = card
 
     # -- 2. build ---------------------------------------------------------------
+    stamps["build"] = time.perf_counter()
     t0 = time.perf_counter()
     for k, log in _build.build().items():
         for kern, typ, regs, spill in ptxas_summary(log):
@@ -249,6 +277,7 @@ def main():
           f"{report['build_s']:.1f} s", flush=True)
 
     # -- 3. kernels against their plain versions --------------------------------
+    stamps["kernels"] = time.perf_counter()
     model, _ = load_model_from_checkpoint(CKPT)       # device defaults to cuda
     cfg, params = model.cfg, model.decoder
     imgs = torch.from_numpy(scenes(B, cfg.input_size, seed=0)).to(dev)
@@ -334,7 +363,10 @@ def main():
         hh, cc = TD.init_lstm_state(m.decoder, an, m.cfg)
         hh, cc = hh[0].contiguous(), cc[0].contiguous()
         ee = TD.embed_tokens(m.decoder, torch.full((n,), 3, device=dev), m.cfg)
-        check_step(label, (KS.step_weights(m.decoder, m.cfg), m.cfg, ee, hh, cc, an, ae))
+        args = (KS.step_weights(m.decoder, m.cfg), m.cfg, ee, hh, cc, an, ae)
+        got_n, err_n = check_step(label, args)
+        if n == B_BEAM and m is model:
+            beam_step_args, beam_step_out, beam_step_err = args, got_n, err_n
         la = (*KL.loop_weights(m.decoder, m.cfg, torch.float32), m.cfg, an, ae, hh, cc)
         k2, p2 = KL.greedy_loop(*la, max_gen_length=S), KL.greedy_loop_plain(*la, max_gen_length=S)
         ok = (k2[0] == p2[0]).all(-1) & (k2[3] == p2[3])
@@ -343,7 +375,8 @@ def main():
         print(f"[check] {label}: both kernels agree with their plain versions",
               flush=True)
 
-    # -- 4. main path -------------------------------------------------------------
+    # -- 4. greedy path -------------------------------------------------------------
+    stamps["greedy"] = time.perf_counter()
     KS.launches = KL.launches = 0
     model, _ = load_model_from_checkpoint(CKPT)
     annots = model.encode(imgs)
@@ -381,7 +414,45 @@ def main():
     check(torch.equal(ref.tokens, res_loop.tokens[:4].cpu()), "GPU tokens equal the CPU's")
     print("[main] first 4 captions equal the CPU run's", flush=True)
 
-    # -- 5. bfloat16 -----------------------------------------------------------------
+    # -- 5. beam path -------------------------------------------------------------------
+    stamps["beam"] = time.perf_counter()
+    beam_kw = dict(beamk=K_BEAM, max_gen_length=S, rescore_method="LN")
+    KS.launches = KL.launches = 0
+    beam_caps = model.caption(imgs, **beam_kw)[0]
+    torch.cuda.synchronize()
+    beam_launches = {"decoder_step": KS.launches, "greedy_loop": KL.launches}
+    print(f"[beam] launches in model.caption (beamk {K_BEAM}, LN): {beam_launches}",
+          flush=True)
+    check(beam_launches["decoder_step"] == S + 1 and beam_launches["greedy_loop"] == 0,
+          "model.caption ran the step kernels once per step")
+    res_bk = beam_search(model.decoder, model.cfg, annots, **beam_kw)
+    res_bp = beam_search(model.decoder, model.cfg, annots, fused=False, **beam_kw)
+    torch.cuda.synchronize()
+    for r in (res_bk, res_bp):
+        check(r.tokens.shape == (B, K_BEAM, S + 2)
+              and r.alphas.shape == (B, K_BEAM, S + 1, L), "beam result shapes")
+        check(torch.isfinite(r.scores).all() and torch.isfinite(r.raw_scores).all(),
+              "beam scores are finite")
+    best_k = unpack_beam_result(res_bk, model.grid_hw)[0]
+    best_p = unpack_beam_result(res_bp, model.grid_hw)[0]
+    check(best_k == beam_caps, "model.caption equals beam_search + unpack")
+    beam_agree = same_share(best_k, best_p)
+    check(beam_agree >= 0.99, f"beam best captions agree on {beam_agree:.3f} of images")
+    ref_b = beam_search(cpu_model.decoder, cpu_model.cfg,
+                        cpu_model.encode(imgs[:4].cpu()), **beam_kw)
+    check(unpack_beam_result(ref_b, cpu_model.grid_hw)[0] == best_k[:4],
+          "beam: GPU best captions equal the CPU's")
+    beam_words = [" ".join(model.vocab.itos(t) for t in c) for c in best_k]
+    for w in beam_words[:4]:
+        print(f"[beam] caption: {w}")
+    beam_done = int((res_bk.lengths < S).sum())
+    print(f"[beam] best captions of the step kernels and the plain path agree on "
+          f"{beam_agree * 100:.1f}% of images; first 4 equal the CPU run's; "
+          f"{beam_done}/{B * K_BEAM} hypotheses end before max_gen_length",
+          flush=True)
+
+    # -- 6. bfloat16 -----------------------------------------------------------------
+    stamps["bf16"] = time.perf_counter()
     m16 = copy.deepcopy(model).to(torch.bfloat16)
     a16 = m16.encode(imgs)
     r16_loop = greedy_decode(m16.decoder, m16.cfg, a16, max_gen_length=S)
@@ -399,15 +470,25 @@ def main():
             "step_vs_f32_plain": agreement(r16_step, res_plain).float().mean().item(),
             "loop_kernel_vs_plain": ((k16[0] == p16[0]).all(-1) & (k16[3] == p16[3]))
             .float().mean().item()}
+    serve_kw = dict(beam_kw, early_exit=True)
+    r16_beam = beam_search(m16.decoder, m16.cfg, a16, **serve_kw)
+    bf16["beam_serving_vs_f32_kernels"] = same_share(
+        unpack_beam_result(r16_beam, m16.grid_hw)[0], best_k)
+    bf16["beam_serving_finite"] = bool(torch.isfinite(r16_beam.scores).all())
     print(f"[bf16] token agreement: {bf16}", flush=True)
 
-    # -- 6. timing ----------------------------------------------------------------------
+    # -- 7. timing ----------------------------------------------------------------------
+    stamps["timing"] = time.perf_counter()
     f32 = "float32"
     calls = {  # name: (function, calls per timed run, kernel name for the profiler)
         "decoder_step": (lambda: KS.fused_decoder_step(*step_args), 20, "decoder_step_"),
         "decoder_step_plain": (lambda: KS.fused_decoder_step_plain(*step_args), 20, None),
         "decoder_step_bf16": (lambda: KS.fused_decoder_step(*step_args16), 20,
                               "decoder_step_"),
+        "decoder_step_192": (lambda: KS.fused_decoder_step(*beam_step_args), 20,
+                             "decoder_step_"),
+        "decoder_step_192_plain": (lambda: KS.fused_decoder_step_plain(*beam_step_args),
+                                   20, None),
         "greedy_loop": (lambda: KL.greedy_loop(*loop_args, max_gen_length=S), 1,
                         "greedy_loop_"),
         "greedy_loop_plain": (lambda: KL.greedy_loop_plain(*loop_args, max_gen_length=S),
@@ -423,18 +504,28 @@ def main():
             lambda mm=mm, fused=fused: greedy_decode(
                 mm.decoder, mm.cfg, mm.encode(imgs), max_gen_length=S, fused=fused),
             1, None)
+    for label, fused, mm, kw in (("kernels", None, model, beam_kw),
+                                 ("plain", False, model, beam_kw),
+                                 ("kernels_bf16_serving", None, m16, serve_kw)):
+        calls["beam_captioning_" + label] = (
+            lambda mm=mm, fused=fused, kw=kw: beam_search(
+                mm.decoder, mm.cfg, mm.encode(imgs), fused=fused, **kw), 1, None)
     ms = {k: cuda_ms(fn, calls=n) for k, (fn, n, _) in calls.items()}
-    busy = {k: device_ms(fn, name) for k, (fn, _, name) in calls.items()}
+    # one profiler window per entry; a beam decode records thousands of events
+    dev_times = {k: device_times(fn, calls=3 if k.startswith("beam_") else 10)
+                 for k, (fn, _, _) in calls.items()}
+    busy = {k: busy_of(dev_times[k], name) for k, (_, _, name) in calls.items()}
     print(f"[time] per call, CUDA events (B={B}): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()), flush=True)
     print("[time] busy device time per call, torch.profiler: "
           + ", ".join(f"{k} {'not measured' if v is None else f'{v:.3f} ms'}"
                       for k, v in busy.items()), flush=True)
-    phase_busy = {f"{ph}{label}": device_ms(calls["greedy_loop" + label][0], "greedy_loop_" + ph)
+    phase_busy = {f"{ph}{label}": busy_of(dev_times["greedy_loop" + label], "greedy_loop_" + ph)
                   for label in ("", "_bf16") for ph in KL.PHASES}
-    step_busy = {f"{k}{label}": device_ms(calls["decoder_step" + label][0], "decoder_step_" + k)
-                 for label in ("", "_bf16") for k in KS.KERNELS}
-    print(f"[time] step kernels (B={B}), busy device time per call, torch.profiler: "
+    step_busy = {f"{k}{label}": busy_of(dev_times["decoder_step" + label], "decoder_step_" + k)
+                 for label in ("", "_bf16", "_192") for k in KS.KERNELS}
+    print(f"[time] step kernels (B={B}; _192: B={B_BEAM}), busy device time per call, "
+          "torch.profiler: "
           + ", ".join(f"{k} {'not measured' if v is None else f'{v * 1e3:.1f} us'}"
                       for k, v in step_busy.items()), flush=True)
     step_host = {k: host_ms(calls[k][0]) for k in ("decoder_step", "decoder_step_bf16")}
@@ -448,6 +539,15 @@ def main():
                       for k, v in phase_busy.items()), flush=True)
     e2e = {}
     for k in ms:
+        if k.startswith("beam_captioning_"):
+            e2e[k] = {"ms": ms[k], "imgs_per_s": B / ms[k] * 1e3,
+                      "device_idle": None if busy[k] is None else 1 - busy[k] / ms[k]}
+            idle = e2e[k]["device_idle"]
+            print(f"[time] beam captioning ({k[16:]}, beamk {K_BEAM}, LN): "
+                  f"{ms[k]:.3f} ms / batch of {B}, {e2e[k]['imgs_per_s']:.0f} imgs/s, "
+                  f"busy {'not measured' if busy[k] is None else f'{busy[k]:.3f} ms'}, "
+                  f"device idle {'not measured' if idle is None else f'{idle:.1%}'}",
+                  flush=True)
         if k.startswith("captioning_"):
             e2e[k] = {"ms": ms[k], "imgs_per_s": B / ms[k] * 1e3,
                       "device_idle": None if busy[k] is None else 1 - busy[k] / ms[k]}
@@ -459,26 +559,41 @@ def main():
     # bounds: inputs read once, outputs written once; operations of this run
     step_bytes = nbytes(e, h0, c0, annots, att_enc, *fw, *got)
     step_bound, step_by = bound(step_bytes, B * step_flops(L, D, A, H, E), f32)
+    beam_bytes = nbytes(*beam_step_args[2:], *fw, *beam_step_out)
+    beam_bound, beam_by = bound(beam_bytes, B_BEAM * step_flops(L, D, A, H, E), f32)
+    beam_calls = {"step_calls_per_batch": beam_launches["decoder_step"],
+                  "kernel_launches_per_batch": beam_launches["decoder_step"] * len(KS.KERNELS),
+                  "step_ms_192": ms["decoder_step_192"],
+                  "step_busy_ms_192": busy["decoder_step_192"],
+                  "step_bound_ms_192": beam_bound, "step_bound_by_192": beam_by}
+    print(f"[time] beam path: {beam_calls}", flush=True)
     steps_run = torch.where(kl[4], kl[3] + 1, S + 1).sum().item()
     loop_bytes = nbytes(annots, att_enc, h0, c0, *fw, *lw[1:], *kl)
     loop_ops = steps_run * (step_flops(L, D, A, H, E) + 2 * E * V)
     loop_bound, loop_by = bound(loop_bytes, loop_ops, f32)
 
     kernels = [
+        # at the beam path's rows, with its launch count (model.caption)
         {"name": "decoder_step", "route": "cuda",
          "source": "sat_tpu_torch/csrc/decoder_step.cu",
          "replaces": "sat_tpu/kernels/decoder_step.py:72",
-         "launches": launches["decoder_step"], "max_abs_err": max(step_err.values()),
-         "ms": ms["decoder_step"], "plain_ms": ms["decoder_step_plain"],
-         "bound_ms": step_bound, "bound_by": step_by, "library_ms": None},
+         "launches": beam_launches["decoder_step"], "rows": B_BEAM,
+         "max_abs_err": max(beam_step_err.values()),
+         "ms": ms["decoder_step_192"], "plain_ms": ms["decoder_step_192_plain"],
+         "bound_ms": beam_bound, "bound_by": beam_by, "library_ms": None},
         {"name": "greedy_loop", "route": "cuda",
          "source": "sat_tpu_torch/csrc/greedy_loop.cu",
          "replaces": "sat_tpu/kernels/greedy_loop.py:42",
-         "launches": launches["greedy_loop"], "max_abs_err": loop_err,
+         "launches": launches["greedy_loop"], "rows": B, "max_abs_err": loop_err,
          "ms": ms["greedy_loop"], "plain_ms": ms["greedy_loop_plain"],
          "bound_ms": loop_bound, "bound_by": loop_by, "library_ms": None},
     ]
     report.update(kernels=kernels, step_err=step_err, loop_agreement=rate,
+                  greedy_launches=launches, beam_launches=beam_launches,
+                  beam_agreement=beam_agree, beam=beam_calls,
+                  beam_captions=beam_words[:8], beam_finished=beam_done,
+                  step_64={"ms": ms["decoder_step"], "plain_ms": ms["decoder_step_plain"],
+                           "bound_ms": step_bound, "bound_by": step_by},
                   main_agreement=agree, bf16=bf16, e2e=e2e, call_ms=ms, busy_ms=busy,
                   loop_phase_busy_ms=phase_busy, step_kernel_busy_ms=step_busy,
                   step_host_ms=step_host,
@@ -488,6 +603,11 @@ def main():
                   loop_batch_steps=batch_steps,
                   loop_rows_steps=steps_run,
                   captions=words[:8], finished=n_done, batch=B, max_gen_length=S)
+    stamps["end"] = time.perf_counter()
+    names = list(stamps)
+    report["phase_s"] = {a: stamps[b] - stamps[a] for a, b in zip(names, names[1:])}
+    print("[time] seconds per phase of this script: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in report["phase_s"].items()), flush=True)
     print("[report] " + json.dumps(report))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,18 +1,19 @@
 """Host-side caption API, ported from ``sat_tpu/decode/api.py``.
 
-``unpack_beam_result`` turns a BeamResult into the reference's python-list
-contract: captions (token-id lists without <START>/<END>), scores, alphas
-(2-D attention maps per word) and perplexity.  ``caption_from_annotations``
-goes through beam search and comes with the beam-search slice."""
+``caption_from_annotations`` runs ``beam_search`` and ``unpack_beam_result``
+turns its BeamResult into the reference's python-list contract: captions
+(token-id lists without <START>/<END>), scores, alphas (2-D attention maps
+per word) and perplexity."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from .beam import BeamResult
+from ..config import SATConfig
+from .beam import BeamResult, beam_search
 
 
 def _np(x) -> np.ndarray:
@@ -20,6 +21,28 @@ def _np(x) -> np.ndarray:
         x = x.detach().cpu()
         return (x.float() if x.is_floating_point() else x).numpy()
     return np.asarray(x)
+
+
+def caption_from_annotations(
+        params, cfg: SATConfig, annotations: torch.Tensor,
+        grid_hw: Tuple[int, int], beamk: int = 3, max_gen_length: int = 32,
+        temperature: Union[float, Sequence[float]] = 1.0,
+        sample_method: str = "beam", sample_topk: int = 3,
+        decoder_noise: Optional[float] = None,
+        rescore_method: Optional[str] = None, rescore_reward: float = 0.5,
+        return_all: bool = False,
+        generator: Optional[torch.Generator] = None,
+        early_exit: bool = False, fused: Optional[bool] = None):
+    """Decode annotations (B, L, D) -> (captions, scores, alphas,
+    perplexity); ``return_all`` gives every hypothesis per image, best
+    first.  ``fused`` as in ``beam_search``."""
+    res = beam_search(
+        params, cfg, annotations, beamk=beamk, max_gen_length=max_gen_length,
+        temperature=temperature, sample_method=sample_method,
+        sample_topk=sample_topk, decoder_noise=decoder_noise,
+        rescore_method=rescore_method, rescore_reward=rescore_reward,
+        generator=generator, fused=fused, early_exit=early_exit)
+    return unpack_beam_result(res, grid_hw, return_all)
 
 
 def unpack_beam_result(res: BeamResult, grid_hw: Tuple[int, int],

@@ -6,8 +6,7 @@ the JAX parameter dict (``att_dec.w``, ``lstm.layer_0.w_ih``, ...).  Linear
 weights keep the JAX layout ``w (in, out)`` and are applied as ``x @ w``.
 Annotations are ``(B, L, D)``; ``h``/``c`` are ``(layers, B, H)``.
 
-Dropout and the beam-expanded state init come with the trainer and the beam
-search."""
+Dropout comes with the trainer."""
 
 from __future__ import annotations
 
@@ -84,6 +83,25 @@ def init_lstm_state(params: ParamTree, annotations: torch.Tensor,
         init = init.reshape(2 * n, b, cfg.decoder_dim)
     else:
         init = init.reshape(b, 2 * n, cfg.decoder_dim).transpose(0, 1)
+    return init[:n], init[n:]
+
+
+def init_lstm_state_beams(params: ParamTree, annotations: torch.Tensor,
+                          cfg: SATConfig, beamk: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beam-expanded initial state, h, c (layers, B, k, H).
+
+    The reference runs its state init on each image's annotations repeated
+    ``beamk`` times and reshapes the (k, 2*layers*H) projection raw, so beam
+    slot j of layer l takes ``g[((l*k + j)*H + h) mod 2*layers*H]`` of the
+    image's projection g: slots alternate between its h and c halves."""
+    mean = annotations.mean(dim=1)
+    g = _linear(params.init_proj, _linear(params.init_factorize, mean))
+    L2, H, k, n = 2 * cfg.decoder_layers, cfg.decoder_dim, beamk, cfg.decoder_layers
+    ar = lambda m: torch.arange(m, device=g.device)
+    idx = (ar(L2)[:, None, None] * (k * H) + ar(k)[None, :, None] * H
+           + ar(H)[None, None, :]) % (L2 * H)
+    init = g[:, idx].movedim(0, 1)                 # (2*layers, B, k, H)
     return init[:n], init[n:]
 
 

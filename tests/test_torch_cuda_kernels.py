@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from sat_tpu_torch.config import SATConfig
-from sat_tpu_torch.decode.beam import greedy_decode
+from sat_tpu_torch.decode.beam import beam_search, greedy_decode
 from sat_tpu_torch.kernels import decoder_step as KS
 from sat_tpu_torch.kernels import greedy_loop as KL
 from sat_tpu_torch.models import decoder as TD
@@ -134,6 +134,36 @@ def test_loop_kernel(shape, tying, embed_norm, temperature):
     assert same.float().mean().item() >= 0.99
     assert (got.scores - ref.scores)[same].abs().max().item() <= 1e-3
     assert (got.alphas - ref.alphas)[same].abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("early_exit", [False, True])
+def test_beam_search_runs_the_step_kernels(shape, early_exit):
+    """beam_search on the card by default: the step kernels at B k rows, one
+    call per executed step, with the plain path's best hypotheses."""
+    dev = _card()
+    E, D, A, H, V, L, B = shape
+    B = min(B, 64)
+    cfg, p = make(E, D, A, H, V)
+    p = p.to(dev)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    a = torch.randn(B, L, D, generator=g).to(dev)
+    kw = dict(beamk=3, max_gen_length=12, rescore_method="LN",
+              early_exit=early_exit)
+    n0 = KS.launches
+    got = beam_search(p, cfg, a, **kw)
+    ran = KS.launches - n0
+    ref = beam_search(p, cfg, a, fused=False, **kw)
+    torch.cuda.synchronize()
+    assert 1 <= ran <= 13 and (ran == 13 or early_exit)
+    best = lambda r: r.tokens[torch.arange(B), r.scores.argmax(1)]
+    same = (best(got) == best(ref)).all(-1)
+    assert same.float().mean().item() >= 0.99
+    assert torch.isfinite(got.scores).all()
+    assert (got.scores.max(1).values - ref.scores.max(1).values)[same].abs().max() <= 1e-3
+    with pytest.raises(ValueError, match="decoder_noise"):
+        beam_search(p, cfg, a, decoder_noise=0.5, **kw)
+    beam_search(p, cfg, a, decoder_noise=0.5, fused=False, **kw)
 
 
 def test_loop_kernel_stops_once_every_row_finished():
