@@ -60,7 +60,22 @@ Phases, each of which fails the run (nonzero exit, no result line):
    (3 epochs, half the val batches), whose epoch-3 loss must be at most
    0.9 of epoch 1's, with ``last.ckpt`` at step 24, one top-k file and the
    logged points in the logger's files; (e) each epoch's times and one
-   profiler window over epoch 2's train steps.
+   profiler window over epoch 2's train steps;
+10. serving and evaluation at the n64 configuration, through the CLIs'
+   ``main``: (a) ``serve`` at f32 (batch 64, beamk 3, LN) on 256 JPEGs of
+   seeded scenes at 256 x 320 and one file that is not an image: 257
+   records in path order, one error record, the step kernels counted, the
+   first 16 records equal to the CPU's run (captions, scores and
+   perplexities within 1e-4); (b) ``serve`` at its default bf16: 257
+   records, finite scores, the share of captions equal to (a)'s (not
+   gated); (c) the checkpoint written as a reference Lightning ``.ckpt`` by
+   the port's exporter reads back bit for bit and serves (a)'s records;
+   (d) ``evalx.evaluate`` on phase 9's val split, BLEU-1..4 and GLEU within
+   0.01 of the JAX package's, the step kernels counted; (e)
+   ``evalx.temperature`` within 1e-3 of JAX's T; (f) serve's images/s at
+   f32 and bf16 (median of 3, JPEG decode included, with the host decode
+   seconds), busy ms and idle share from one profiler window, and
+   evaluate's seconds split into data, decode and score.
 
 ``python3 chip_smoke.py --cpu-fit`` runs phase 9 (d) on the CPU and prints
 its losses as JSON.
@@ -79,6 +94,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -98,6 +114,22 @@ FIT_TRAIN, FIT_VAL, FIT_EPOCHS = 512, 128, 3
 # JAX's float32 BLEU-4 of the n64 checkpoint on that val split (validate's
 # decode: beamk 3, LN, early exit, 20 words), mean and per batch of 64
 BLEU_JAX, BLEU_JAX_BATCHES = 0.2752, (0.2564, 0.2940)
+# phase 10: JPEGs (quality 90) of seeded scenes, H x W, and one file that is
+# not an image; the serving CLI's batch and beam
+SERVE_N, SERVE_HW, SERVE_BATCH = 256, (256, 320), 64
+# JAX's values on phase 9's val split, from the JAX package's own CLIs on a
+# CPU (the JSON's path is what the first command prints):
+#   python -c "from sat_tpu.data.compositional import make_compositional_dataset as m;
+#     print(m('n64', n_train=512, n_val=128, n_test=8, image_size=224, n_nouns=64, seed=0))"
+#   JAX_PLATFORMS=cpu python -m sat_tpu.evalx.evaluate --checkpoint \
+#     tests/data/best_n64_r4_serving.ckpt --json n64/compositional_64.json --split val \
+#     --batch 64 --beamk 3 --max_gen_length 20
+#   JAX_PLATFORMS=cpu python -m sat_tpu.evalx.temperature --checkpoint \
+#     tests/data/best_n64_r4_serving.ckpt --json n64/compositional_64.json --split val \
+#     --batch_size 16 --max_batches 8
+EVAL_JAX = {"bleu1": 0.65975, "bleu2": 0.54325, "bleu3": 0.39089, "bleu4": 0.27459,
+            "gleu": 0.3002}
+TEMPERATURE_JAX = 0.7618
 REFS, MAX_WORDS = 5, 18         # per image; the n64 header's max_cap_length
 TRAIN_PARTS = ("input copy", "augment", "encoder", "decoder forward",
                "backward", "optimizer")
@@ -621,10 +653,9 @@ def fit_argv(cfg, log_root):
         "--log_root", log_root]
 
 
-def fit_phase(dev):
-    """Phase 9: fit at the n64 configuration (module docstring)."""
-    import tempfile
-
+def fit_phase(dev, data_dir):
+    """Phase 9: fit at the n64 configuration (module docstring); the
+    dataset is written into ``data_dir``, where phase 10 reads it."""
     import torch
     from sat_tpu_torch.data import images as DI
     from sat_tpu_torch.data.compositional import make_compositional_dataset
@@ -644,8 +675,9 @@ def fit_phase(dev):
     with tempfile.TemporaryDirectory(prefix="sat_fit_") as tmp:
         # (a) the dataset and its loaders
         t0 = time.perf_counter()
-        js = make_compositional_dataset(tmp, n_train=FIT_TRAIN, n_val=FIT_VAL,
+        js = make_compositional_dataset(data_dir, n_train=FIT_TRAIN, n_val=FIT_VAL,
                                         n_test=8, image_size=224, n_nouns=64, seed=0)
+        out["json"] = js
         write_s = time.perf_counter() - t0
         header = read_checkpoint_config(CKPT)
         with open(js) as f:
@@ -807,11 +839,209 @@ def fit_phase(dev):
     return out
 
 
+def write_jpegs(out_dir, n, seed):
+    """n seeded scenes as JPEG (quality 90), each resized from 224 to 256
+    px and padded with the scenes' grey to SERVE_HW, so that serving's
+    resize (shorter side 256 -> 224) and centre crop both run; then one
+    file that is not an image, last in path order."""
+    from PIL import Image
+    h, w = SERVE_HW
+    imgs = np.rint(scenes(n, 224, seed) * 255).astype(np.uint8)
+    for i, a in enumerate(imgs):
+        canvas = Image.new("RGB", (w, h), (105, 105, 105))
+        canvas.paste(Image.fromarray(a).resize((h, h), Image.BILINEAR), ((w - h) // 2, 0))
+        canvas.save(os.path.join(out_dir, f"scene_{i:03d}.jpg"), quality=90)
+    with open(os.path.join(out_dir, "zz_not_an_image.jpg"), "w") as f:
+        f.write("not an image")
+
+
+def serve_run(argv, out_path, device=None):
+    """One ``python -m sat_tpu_torch.serve`` run: (records, step-kernel
+    calls, wall seconds of the call, the CLI's own timings)."""
+    import torch
+    from sat_tpu_torch import serve
+    from sat_tpu_torch.kernels import decoder_step as KS
+    KS.launches = 0
+    t0, tm = time.perf_counter(), {}
+    check(serve.main(list(argv) + ["--output", out_path], device=device,
+                     timings=tm) == 0, f"serve {argv[-2:]}: exit code 0")
+    if device is None:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    calls = KS.launches
+    with open(out_path) as f:
+        return [json.loads(line) for line in f], calls, wall, tm
+
+
+def serve_phase(dev, js, card):
+    """Phase 10: serve and evaluate at the n64 configuration (module
+    docstring)."""
+    import contextlib
+    import io
+
+    import torch
+    from sat_tpu_torch import serve
+    from sat_tpu_torch.evalx import evaluate as EV
+    from sat_tpu_torch.evalx import temperature as TP
+    from sat_tpu_torch.kernels import decoder_step as KS
+    from sat_tpu_torch.models import lightning_export
+    from sat_tpu_torch.train.checkpoints import load_any_checkpoint
+
+    out, stamps = {}, {"a": time.perf_counter()}
+    with tempfile.TemporaryDirectory(prefix="sat_serve_") as tmp:
+        img_dir = os.path.join(tmp, "images")
+        os.makedirs(img_dir)
+        t0 = time.perf_counter()
+        write_jpegs(img_dir, SERVE_N, seed=10)
+        write_s = time.perf_counter() - t0
+        paths = serve.gather_images([img_dir])
+        n = len(paths)
+        n_batches = -(-n // SERVE_BATCH)
+        base = ["--checkpoint", CKPT, "--images", img_dir, "--batch", str(SERVE_BATCH),
+                "--beamk", str(K_BEAM), "--rescore_method", "LN"]
+        max_len = 32   # serve's default --max_gen_length
+        res = lambda name: os.path.join(tmp, name)
+
+        # (a) f32 on the card, the first 16 images against the CPU
+        recs, calls, wall, tm = serve_run(base + ["--precision", "32"], res("a.jsonl"))
+        errors = [r for r in recs if "error" in r]
+        print(f"[serve] (a) {n} files ({SERVE_N} JPEGs of {SERVE_HW[0]}x{SERVE_HW[1]} "
+              f"written in {write_s:.2f} s, one not an image): {len(recs)} records, "
+              f"{len(errors)} error; {calls} step-kernel calls for {n_batches} batches; "
+              f"{wall:.2f} s", flush=True)
+        check(n == SERVE_N + 1 and [r["image"] for r in recs] == paths,
+              f"serve (a): {len(recs)} records in path order")
+        check(len(errors) == 1 and errors[0]["image"].endswith("zz_not_an_image.jpg"),
+              "serve (a): exactly one error record, the file that is not an image")
+        check(n_batches <= calls <= n_batches * (max_len + 1),
+              f"serve (a): the step kernels ran ({calls} calls for {n_batches} batches)")
+        cpu_recs, _, _, _ = serve_run(
+            ["--checkpoint", CKPT, "--images", *paths[:16], "--batch", "16", "--beamk",
+             str(K_BEAM), "--rescore_method", "LN", "--precision", "32"],
+            res("a_cpu.jsonl"), device="cpu")
+        gaps = [max(abs(g["score"] - c["score"]), abs(g["perplexity"] - c["perplexity"]))
+                for g, c in zip(recs[:16], cpu_recs)]
+        same16 = sum(g["caption"] == c["caption"] for g, c in zip(recs[:16], cpu_recs))
+        print(f"[serve] (a) first 16 records against the CPU run: {same16}/16 captions "
+              f"equal, largest score or perplexity gap {max(gaps):.2e}; e.g. "
+              f"{recs[0]['caption']!r}", flush=True)
+        check(same16 == 16 and max(gaps) <= 1e-4,
+              f"serve (a): {same16}/16 captions equal to the CPU's, gap {max(gaps)}")
+        out["a"] = {"records": len(recs), "step_calls": calls, "batches": n_batches,
+                    "cpu_captions_equal_of_16": same16, "cpu_max_gap": max(gaps),
+                    "write_s": write_s, "captions": [r.get("caption") for r in recs[:8]]}
+
+        # (b) the CLI's default precision, bf16
+        stamps["b"] = time.perf_counter()
+        recs16, calls16, _, _ = serve_run(base, res("b.jsonl"))
+        finite = all(np.isfinite(r["score"]) and np.isfinite(r["perplexity"])
+                     for r in recs16 if "error" not in r)
+        share = sum(a.get("caption") == b.get("caption")
+                    for a, b in zip(recs, recs16) if "error" not in a) / SERVE_N
+        print(f"[serve] (b) --precision 16: {len(recs16)} records, scores finite: {finite}; "
+              f"{calls16} step-kernel calls; captions equal to (a)'s: {share:.1%} "
+              "(not gated: the bf16 encoder, ROADMAP.md §3)", flush=True)
+        check(len(recs16) == n and finite, "serve (b): 257 records with finite scores")
+        out["b"] = {"records": len(recs16), "step_calls": calls16,
+                    "captions_equal_to_f32": share}
+
+        # (c) the reference Lightning route
+        stamps["c"] = time.perf_counter()
+        lt = res("n64_lightning.ckpt")
+        lightning_export.main(["--input", CKPT, "--output", lt])
+        sat_sd = load_any_checkpoint(CKPT).state_dict()
+        lt_sd = load_any_checkpoint(lt).state_dict()
+        check(sat_sd.keys() == lt_sd.keys()
+              and all(torch.equal(sat_sd[k], lt_sd[k]) for k in sat_sd),
+              "serve (c): the Lightning file gives every leaf of the SATTPU1 file bit for bit")
+        lt_recs, _, _, _ = serve_run(
+            ["--checkpoint", lt, "--images", *paths[:SERVE_BATCH]] + base[4:]
+            + ["--precision", "32"], res("c.jsonl"))
+        print(f"[serve] (c) Lightning .ckpt ({os.path.getsize(lt) / 2 ** 20:.2f} MiB): "
+              f"{len(sat_sd)} leaves bit for bit; serve on it gives (a)'s JSONL for the "
+              f"first {SERVE_BATCH} images: {lt_recs == recs[:SERVE_BATCH]}", flush=True)
+        check(lt_recs == recs[:SERVE_BATCH],
+              "serve (c): serving the Lightning file gives (a)'s records")
+        out["c"] = {"leaves": len(sat_sd), "bytes": os.path.getsize(lt)}
+
+        # (d) evaluate on phase 9's val split
+        stamps["d"] = time.perf_counter()
+        ev_tm, real = {}, EV.evaluate
+        EV.evaluate = lambda *a, **k: real(*a, timings=ev_tm, **k)
+        KS.launches = 0
+        t0 = time.perf_counter()
+        try:
+            metrics = EV.main(["--checkpoint", CKPT, "--json", js, "--split", "val",
+                               "--batch", "64", "--beamk", str(K_BEAM),
+                               "--max_gen_length", str(S)])
+        finally:
+            EV.evaluate = real
+        torch.cuda.synchronize()
+        ev_s, ev_calls = time.perf_counter() - t0, KS.launches
+        gaps = {k: metrics[k] - v for k, v in EVAL_JAX.items()}
+        print(f"[serve] (d) evaluate, val split ({FIT_VAL} images): "
+              + ", ".join(f"{k} {metrics[k]:.5f} (JAX {v})" for k, v in EVAL_JAX.items())
+              + f"; {ev_calls} step-kernel calls; {ev_s:.2f} s", flush=True)
+        check(all(abs(g) <= 0.01 for g in gaps.values()),
+              f"serve (d): BLEU-1..4 and GLEU within 0.01 of JAX's ({gaps})")
+        ev_batches = -(-FIT_VAL // 64)
+        check(ev_batches <= ev_calls <= ev_batches * (S + 1),
+              f"serve (d): the step kernels ran ({ev_calls} calls)")
+        out["d"] = {"metrics": metrics, "jax": EVAL_JAX, "step_calls": ev_calls,
+                    "seconds": dict(ev_tm, total=ev_s)}
+
+        # (e) temperature scaling
+        stamps["e"] = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            temp = TP.main(["--checkpoint", CKPT, "--json", js, "--split", "val",
+                            "--batch_size", "16", "--max_batches", "8"])
+        print(f"[serve] (e) temperature {temp:.6f} (JAX {TEMPERATURE_JAX})", flush=True)
+        check(abs(temp - TEMPERATURE_JAX) <= 1e-3,
+              f"serve (e): temperature {temp} within 1e-3 of JAX's")
+        out["e"] = {"temperature": temp, "jax": TEMPERATURE_JAX}
+
+        # (f) times: (a) and (b) were the warm-ups
+        stamps["f"] = time.perf_counter()
+        rates = {}
+        for prec in ("32", "16"):
+            runs = [serve_run(base + ["--precision", prec], res("f.jsonl"))
+                    for _ in range(3)]
+            rates[prec] = {
+                "imgs_per_s": statistics.median(n / w for _, _, w, _ in runs),
+                "loop_imgs_per_s": statistics.median(n / t["seconds"] for *_, t in runs),
+                "decode_s": statistics.median(t["decode_s"] for *_, t in runs),
+                "decode_wait_s": statistics.median(t["decode_wait_s"] for *_, t in runs)}
+        profiled = []
+        busy = busy_of(device_times(lambda: profiled.append(
+            serve_run(base + ["--precision", "32"], res("p.jsonl"))), calls=1))
+        loop_ms = profiled[-1][3]["seconds"] * 1e3     # the profiled run's
+        window = {"busy_ms": busy, "loop_ms": loop_ms,
+                  "device_idle": None if busy is None else 1 - busy / loop_ms}
+        for prec, r in rates.items():
+            print(f"[time] serve --precision {prec}, {n} files, median of 3 ({card}): "
+                  f"{r['imgs_per_s']:.0f} imgs/s for the call (checkpoint read included), "
+                  f"{r['loop_imgs_per_s']:.0f} imgs/s in the loop; host JPEG decode "
+                  f"{r['decode_s']:.3f} s in the prefetch thread, {r['decode_wait_s']:.3f} s "
+                  "waited on", flush=True)
+        busy_s, idle_s = (("not measured",) * 2 if busy is None else
+                          (f"{busy:.3f} ms", f"{window['device_idle']:.1%}"))
+        print(f"[time] serve --precision 32 under the profiler ({card}): busy "
+              f"{busy_s} in a {loop_ms:.1f} ms loop, device idle {idle_s}; "
+              f"evaluate {ev_s:.3f} s: "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in ev_tm.items()), flush=True)
+        out["f"] = {"serve": rates, "profile": window, "card": card}
+    stamps["end"] = time.perf_counter()
+    names = list(stamps)
+    out["seconds"] = {a: stamps[b] - stamps[a] for a, b in zip(names, names[1:])}
+    print("[time] seconds per part of phase 10: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["seconds"].items()), flush=True)
+    return out
+
+
 def cpu_fit():
     """Phase 9 (d) on the CPU (``--cpu-fit``): the same dataset and CLI
     run, printing the epoch-3 / epoch-1 loss ratio."""
-    import tempfile
-
     sys.path.insert(0, ROOT)
     from sat_tpu_torch.data.compositional import make_compositional_dataset
     from sat_tpu_torch.train.checkpoints import read_checkpoint_config
@@ -1203,9 +1433,16 @@ def main():
     stamps["train"] = time.perf_counter()
     report["train"] = train_phase(model, imgs, dev)
 
-    # -- 9. fit at the n64 configuration ------------------------------------------------
-    stamps["fit"] = time.perf_counter()
-    report["fit"] = fit_phase(dev)
+    with tempfile.TemporaryDirectory(prefix="sat_data_") as data_dir:
+        # -- 9. fit at the n64 configuration --------------------------------------------
+        stamps["fit"] = time.perf_counter()
+        report["fit"] = fit_phase(dev, data_dir)
+
+        # -- 10. serve and evaluate at the n64 configuration -----------------------------
+        stamps["serve"] = time.perf_counter()
+        report["serve"] = serve_phase(dev, report["fit"]["json"], card)
+    kernels[0].update(launches_serve=report["serve"]["a"]["step_calls"],
+                      launches_evaluate=report["serve"]["d"]["step_calls"])
     stamps["end"] = time.perf_counter()
     names = list(stamps)
     report["phase_s"] = {a: stamps[b] - stamps[a] for a, b in zip(names, names[1:])}

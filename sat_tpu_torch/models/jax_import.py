@@ -26,9 +26,11 @@ from .encoder import SATEncoder, encoder_from_config, probe_encoder
 
 
 def _tensor(x: Any) -> torch.Tensor:
+    """A contiguous copy: a transposed array (a converted torch Linear
+    weight) keeps no strides that would change the products' rounding."""
     if isinstance(x, torch.Tensor):
-        return x.detach().clone()
-    return torch.from_numpy(np.array(x))
+        return x.detach().clone(memory_format=torch.contiguous_format)
+    return torch.from_numpy(np.array(x, order="C"))
 
 
 def _modules(tree: Dict[str, Any], prefix: str = ""

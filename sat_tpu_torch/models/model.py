@@ -37,10 +37,17 @@ class SATModel(nn.Module):
         encoder with flax's initialisers, the decoder with the reference's.
         ``cfg.encoder_dim`` becomes the encoder's output width, and
         ``cfg.pretrained_embedding`` (a ``.npy`` path of a (V, E) matrix)
-        replaces the drawn embedding."""
-        if cfg.pretrained or cfg.pretrained_weights:
-            raise NotImplementedError("importing torchvision encoder weights "
-                                      "is not ported yet")
+        replaces the drawn embedding.  With ``cfg.pretrained`` and
+        ``cfg.pretrained_weights`` (a saved torchvision ``state_dict``), the
+        backbone takes those weights (``models/torch_import.py``), as in the
+        JAX package, which reads the file only when both are set;
+        ``pretrained`` without a file would download, which the port does
+        not do."""
+        if cfg.pretrained and not cfg.pretrained_weights:
+            raise NotImplementedError(
+                "pretrained=True without pretrained_weights downloads "
+                "torchvision's weights, which the port does not do; pass a "
+                "saved state_dict as pretrained_weights")
         dim, grid = probe_encoder(cfg)
         cfg = cfg.replace(encoder_dim=dim)
         encoder = flax_init_(encoder_from_config(cfg).to(generator.device),
@@ -52,6 +59,15 @@ class SATModel(nn.Module):
                 raise ValueError(f"pretrained embedding shape {emb.shape} != "
                                  f"{tuple(decoder.embedding.shape)}")
             decoder.embedding.copy_(torch.from_numpy(emb))
+        if cfg.pretrained:
+            from .jax_import import encoder_to_jax, load_encoder_weights
+            from .torch_import import import_pretrained
+            params, stats = encoder_to_jax(encoder)
+            tree = import_pretrained(cfg.encoder_arch, cfg.pretrained_weights,
+                                     {"params": {"encoder": params},
+                                      "state": {"batch_stats": stats}})
+            load_encoder_weights(encoder, tree["params"]["encoder"],
+                                 tree["state"]["batch_stats"])
         return cls(cfg, grid, encoder, decoder)
 
     def encode(self, images: torch.Tensor, train: bool = False) -> torch.Tensor:

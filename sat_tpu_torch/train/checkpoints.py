@@ -280,6 +280,23 @@ def load_model_from_checkpoint(path: str,
     return model, extras
 
 
+def load_any_checkpoint(path: str,
+                        device: Union[str, torch.device, None] = None):
+    """The model of a ``SATTPU1`` **or** reference-Lightning ``.ckpt``, on
+    ``device`` (``None``: the CUDA card; raises where there is none).
+
+    Every serving and evaluation CLI takes either format, so a reference
+    user can point existing trained checkpoints at the port's tools.  A zip
+    (``torch.save``) goes to the Lightning importer, anything else to
+    ``load_model_from_checkpoint``."""
+    with open(path, "rb") as f:
+        magic = f.read(2)
+    if magic == b"PK":
+        from ..models.lightning_import import load_reference_checkpoint
+        return load_reference_checkpoint(path, device=device)[1]
+    return load_model_from_checkpoint(path, device=device)[0]
+
+
 TreeFn = Callable[[], Dict[str, Any]]
 
 

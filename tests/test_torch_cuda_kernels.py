@@ -215,3 +215,52 @@ def test_wrapper_rejects_bad_input():
     with pytest.raises(ValueError, match="float16"):
         KS.fused_decoder_step(lw, cfg, e.half(), h[0].half(), c[0].half(),
                               a.half(), att_enc.half())
+
+
+@pytest.mark.parametrize("precision", ["32", "16"])
+def test_serve_runs_the_step_kernels(tmp_path, precision):
+    """``serve.main`` on the card: 10 PNGs and a corrupt file at batch 4
+    (three batches, the last padded) through the step kernels, one call per
+    executed decode step; at float32 the captions of the same run on the
+    CPU, scores within 1e-4."""
+    _card()
+    import json
+
+    from sat_tpu_torch import serve
+    from sat_tpu_torch.data.images import write_png
+    from sat_tpu_torch.models.jax_import import model_to_jax_tree
+    from sat_tpu_torch.models.model import SATModel
+    from sat_tpu_torch.train.checkpoints import save_checkpoint
+
+    V, S = 40, 8
+    stoi = {f"w{i}": i for i in range(1, V - 3)}
+    stoi.update({"<UNK>": V - 3, "<START>": V - 2, "<END>": V - 1, "<PAD>": 0})
+    cfg = SATConfig(encoder_arch="shufflenet_v2_x0_5", input_size=64,
+                    encoder_dim=32, vocab_size=V, vocab_stoi=stoi, embed_dim=16,
+                    attention_dim=16, decoder_dim=32, deep_output=True)
+    model = SATModel.create(cfg, torch.Generator().manual_seed(0))
+    ck = str(tmp_path / "m.ckpt")
+    save_checkpoint(ck, model.cfg, dict(model_to_jax_tree(model), step=0, epoch=0))
+    rng = np.random.default_rng(0)
+    for i in range(10):
+        write_png(str(tmp_path / f"i{i}.png"),
+                  rng.integers(0, 255, (80, 100, 3), dtype=np.uint8))
+    (tmp_path / "k_corrupt.png").write_text("not an image at all")
+    argv = ["--checkpoint", ck, "--images", str(tmp_path / "*.png"), "--batch", "4",
+            "--beamk", "3", "--max_gen_length", str(S), "--precision", precision]
+    n0 = KS.launches
+    assert serve.main(argv + ["--output", str(tmp_path / "card.jsonl")]) == 0
+    ran = KS.launches - n0
+    assert 3 <= ran <= 3 * (S + 1)
+    recs = [json.loads(l) for l in open(tmp_path / "card.jsonl")]
+    assert len(recs) == 11 and sum("error" in r for r in recs) == 1
+    assert all(np.isfinite(r["score"]) for r in recs if "error" not in r)
+    if precision == "32":
+        assert serve.main(argv + ["--output", str(tmp_path / "cpu.jsonl")],
+                          device="cpu") == 0
+        cpu = [json.loads(l) for l in open(tmp_path / "cpu.jsonl")]
+        same = [a for a, b in zip(recs, cpu) if a.get("caption") == b.get("caption")]
+        assert len(same) >= 10
+        for a, b in zip(recs, cpu):
+            if "error" not in a and a["caption"] == b["caption"]:
+                assert abs(a["score"] - b["score"]) <= 1e-4
