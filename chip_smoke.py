@@ -98,6 +98,32 @@ Phases, each of which fails the run (nonzero exit, no result line):
    the size of a checkpoint with ``opt_state`` and its write and read
    seconds are printed.
 
+12. the trainer's settings at the n64 configuration, on phase 9's dataset
+   and the checkpoint header's settings (which are bf16, staged data and
+   64 steps per dispatch): (a) precision 16: three SGD steps at B = 8 from
+   the checkpoint's weights on the card and on the CPU, whose losses and
+   decoder weights must agree within ``BF16_LOSS_TOL`` / ``BF16_PARAM_TOL``,
+   and whose losses must stand ``BF16_APART`` times that gap from the
+   card's float32 steps' (so a step that ran float32 fails), the weights
+   float32 throughout; 30 bf16 steps as phase 8 (b), whose loss must fall by 10 %;
+   the bf16 step's ms, busy ms, idle share and peak memory beside phase 8
+   (e)'s float32 step; (b) microbatch 16 at B = 64: with
+   ``frozen_encoder_eval`` (SGD, no draws) three steps whose weights must be
+   within 1e-5 of the full batch's; with train-mode BatchNorm the step's ms
+   and peak memory, not gated; (c) accumulate 2 through the training CLI:
+   a straight epoch, and a run stopped after step 3 (``opt_state`` must
+   hold ``MultiSteps``' five keys, mid-accumulation) and resumed through
+   ``--resume``, which must read the weights, ``acc_grads``, Adam moments
+   and counters bit for bit and end bit for bit with the straight run;
+   (d) ``device_resident_data`` at ``steps_per_dispatch`` 1 and 4, 2 epochs
+   of 8 steps: the weights, the logged metrics and each validation's BLEU-4
+   (from the staged pixels, the step kernels counted) equal to the host
+   path's run; for the host path, 1 and 8 steps per dispatch, each epoch's
+   wall s and training images/s, the idle share from a profiler window over
+   epoch 2, and the staging seconds, not gated; (e) ``profile_dir``: the
+   straight run of (c) writes one trace of its first epoch, which must list
+   CUDA kernel events.
+
 ``python3 chip_smoke.py --cpu-fit`` runs phase 9 (d) on the CPU and prints
 its losses as JSON.
 
@@ -108,6 +134,7 @@ of the run as JSON, the ``kernels`` JSON line and
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -155,6 +182,15 @@ EVAL_JAX = {"bleu1": 0.65975, "bleu2": 0.54325, "bleu3": 0.39089, "bleu4": 0.274
             "gleu": 0.3002}
 TEMPERATURE_JAX = 0.7618
 REFS, MAX_WORDS = 5, 18         # per image; the n64 header's max_cap_length
+# phase 12 (a): bf16 steps, card against CPU, the largest gaps allowed (an
+# H100 measured 1.8e-4 and 4.5e-5), both below the gaps of the card's bf16
+# steps to its float32 ones (1.19e-3 and 1.25e-4), which must be at least
+# BF16_APART times the loss's card-against-CPU gap: a step that ran float32
+# on both sides agrees with the CPU and fails there
+BF16_LOSS_TOL, BF16_PARAM_TOL, BF16_APART = 1e-3, 1e-4, 4
+# host seconds a profiler window stays open before and after what it records,
+# and the uncounted kernels (torch.cuda._sleep's) it opens with
+PROFILER_PAD_S, PROFILER_HEAD = 0.05, 256
 TRAIN_PARTS = ("input copy", "augment", "encoder", "decoder forward",
                "backward", "optimizer")
 
@@ -263,24 +299,50 @@ def host_ms(fn, calls=20, reps=5):
     return statistics.median(times)
 
 
+@contextlib.contextmanager
+def device_window():
+    """A ``torch.profiler`` window of device activity around the block, open
+    ``PROFILER_PAD_S`` before it and after it (the block ends with a
+    synchronize), whose first kernels are ``PROFILER_HEAD`` uncounted ones:
+    a window whose own start or stop stalls can lose the kernels nearest
+    its ends, and on an H100 windows over a few bf16 train steps now and
+    then lost some of their first records (``profiler_windows.py``).  Read
+    it with ``window_events``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_PAD_S)
+        for _ in range(PROFILER_HEAD):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        yield prof
+        time.sleep(PROFILER_PAD_S)
+
+
+def window_events(prof, head=False):
+    """The device events of a ``device_window`` in time order, without its
+    uncounted head kernels (with them for ``head``)."""
+    from torch.autograd import DeviceType
+    return sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and (head or "spin_kernel" not in e.name)),
+                  key=lambda e: e.time_range.start)
+
+
 def device_times(fn, calls=10):
     """Busy device time per call of each kernel fn launches, in ms by kernel
     name, from one torch.profiler (CUPTI) window of ``calls`` calls; host
     gaps between launches are not counted.  Device activity only: host
     operations are not recorded (a beam decode runs thousands)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_window() as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     out = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            out[e.name] = out.get(e.name, 0.0) + e.device_time_total / calls / 1e3
+    for e in window_events(prof):
+        out[e.name] = out.get(e.name, 0.0) + e.device_time_total / calls / 1e3
     return out
 
 
@@ -297,21 +359,18 @@ def device_ms(fn, name=None, calls=10):
     return busy_of(device_times(fn, calls), name)
 
 
-def train_busy(trainer, batch, steps=3):
-    """Busy device ms per train step, in all and per part of the step
-    (TRAIN_PARTS), from one torch.profiler window (device activity only) over
-    ``steps`` calls of ``trainer.train_step``.  A one-element XOR on the
-    stream marks where each part starts: wrappers around the trainer's
-    augment, encode, loss, clip and update launch it; the run fails where
-    the profiler shows another count of marks than 6 per step."""
+def marked_step_events(trainer, batch, steps=3, head=False):
+    """The device events, in time order, of one torch.profiler window
+    (``device_window``, device activity only) over ``steps`` calls of
+    ``trainer.train_step`` after one outside it, with a one-element XOR on
+    the stream (``is_mark``) where each part of a step starts (TRAIN_PARTS):
+    wrappers around the trainer's augment, encode, loss, clip and update
+    launch it, 6 marks per step.  ``head`` keeps the window's head kernels."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from sat_tpu_torch.train import loop
 
     flag = torch.zeros(1, dtype=torch.int16, device=trainer.device)
     mark = lambda: flag.bitwise_xor_(1)          # no step runs an XOR
-    is_mark = lambda e: "xor" in e.name.lower()
 
     def marked(fn, before=True, after=False):
         def wrapped(*a, **k):
@@ -333,7 +392,7 @@ def train_busy(trainer, batch, steps=3):
     try:
         trainer.train_step(batch)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with device_window() as prof:
             for _ in range(steps):
                 trainer.train_step(batch)
             torch.cuda.synchronize()
@@ -341,8 +400,18 @@ def train_busy(trainer, batch, steps=3):
         (trainer.augment, loop.train_forward_loss_grouped,
          loop.clip_gradients, loop.step) = saved
         del trainer.model.encode
-    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
+    return window_events(prof, head)
+
+
+def is_mark(event):
+    return "xor" in event.name.lower()
+
+
+def train_busy(trainer, batch, steps=3):
+    """Busy device ms per train step, in all and per part of the step
+    (TRAIN_PARTS), from ``marked_step_events``; the run fails where the
+    profiler shows another count of marks than 6 per step."""
+    events = marked_step_events(trainer, batch, steps)
     total = sum(e.device_time_total for e in events
                 if not is_mark(e)) / steps / 1e3
     parts, part = dict.fromkeys(TRAIN_PARTS, 0.0), 0
@@ -619,16 +688,13 @@ def logged_fit(argv, device):
     def train_epoch(self, batches=None, max_batches=None):
         if batches is not None or self.current_epoch != 1 or self.device.type != "cuda":
             return real[1](self, batches, max_batches)
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with device_window() as prof:
             t0 = time.perf_counter()
             means = real[1](self, batches, max_batches)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        busy = sum(e.device_time_total for e in prof.events()
-                   if e.device_type == DeviceType.CUDA) / 1e3
+        busy = sum(e.device_time_total for e in window_events(prof)) / 1e3
         window.update(epoch=2, wall_ms=wall, busy_ms=busy, device_idle=1 - busy / wall,
                       steps=len(self.train_loader))
         return means
@@ -903,7 +969,6 @@ def serve_run(argv, out_path, device=None):
 def serve_phase(dev, js, card):
     """Phase 10: serve and evaluate at the n64 configuration (module
     docstring)."""
-    import contextlib
     import io
     from unittest import mock
 
@@ -1087,8 +1152,10 @@ def serve_phase(dev, js, card):
     return out
 
 
-def fit_trainer(argv, device):
-    """The training CLI's ``main(argv, device)``; returns its trainer."""
+def fit_trainer(argv, device, on_start=None):
+    """The training CLI's ``main(argv, device)``; returns its trainer.
+    ``on_start(trainer)`` runs as ``fit`` starts, on the trainer as the CLI
+    built it."""
     from sat_tpu_torch.train import loop
     from sat_tpu_torch.train.__main__ import main as train_main
 
@@ -1096,6 +1163,8 @@ def fit_trainer(argv, device):
 
     def fit(self):
         seen["trainer"] = self
+        if on_start is not None:
+            on_start(self)
         return real(self)
     loop.Trainer.fit = fit
     try:
@@ -1120,6 +1189,12 @@ def state_gap(a, b):
     """(largest gap relative to each tensor's largest magnitude, bit for bit)."""
     check(a.keys() == b.keys() and any("exp_avg" in k for k in a),
           "resume: the same weights and Adam moments")
+    return tensors_gap(a, b)
+
+
+def tensors_gap(a, b):
+    """``state_gap`` of two dicts of float tensors with the same keys."""
+    check(a.keys() == b.keys(), "the same tensors on both sides")
     gaps = [float((a[k] - b[k]).abs().max() / b[k].abs().max().clamp_min(1e-30)) for k in a]
     return max(gaps), all(bool((a[k] == b[k]).all()) for k in a)
 
@@ -1227,6 +1302,271 @@ def resume_phase(dev, js):
     names = list(stamps)
     out["seconds"] = {a: stamps[b] - stamps[a] for a, b in zip(names, names[1:])}
     print("[time] seconds per part of phase 11: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["seconds"].items()), flush=True)
+    return out
+
+
+def accumulated_state(trainer):
+    """A copy of ``training_state`` with ``MultiSteps``' running mean of the
+    gradients (every leaf), and its counters with Adam's count."""
+    out = training_state(trainer)
+    out.update({f"acc_grads/{n}": t for n, t in trainer.multisteps.acc.items()})
+    out = {k: v.clone() for k, v in out.items()}
+    steps = sorted({float(st["step"]) for st in trainer.optimizer.state.values() if "step" in st})
+    return out, [trainer.multisteps.mini_step, trainer.multisteps.gradient_step, steps]
+
+
+def trace_kernels(profile_dir):
+    """(trace files in ``profile_dir``, CUDA kernel events in them)."""
+    files = [os.path.join(profile_dir, f) for f in sorted(os.listdir(profile_dir))
+             if f.endswith(".pt.trace.json")] if os.path.isdir(profile_dir) else []
+    kernels = 0
+    for f in files:
+        with open(f) as fh:
+            kernels += sum(e.get("cat") == "kernel" for e in json.load(fh)["traceEvents"])
+    return files, kernels
+
+
+def settings_phase(dev, js, step_f32):
+    """Phase 12: the trainer's settings at the n64 configuration (module
+    docstring); ``step_f32`` is phase 8 (e)'s float32 step."""
+    import torch
+    from sat_tpu_torch.config import args_from_config
+    from sat_tpu_torch.kernels import decoder_step as KS
+    from sat_tpu_torch.train import loop
+    from sat_tpu_torch.train.checkpoints import (load_checkpoint, load_model_from_checkpoint,
+                                                 read_checkpoint_config, save_checkpoint)
+
+    out, stamps = {}, {"a": time.perf_counter()}
+    header = read_checkpoint_config(CKPT).replace(resume=None)
+    base = header.replace(precision=32, device_resident_data=False, json=None)  # phase 8's
+    ckpt_model, _ = load_model_from_checkpoint(CKPT, device="cpu")
+    vocab = ckpt_model.vocab
+    exact = dict(opt="sgd", momentum=0.0, decoder_tf="always", aug_scale=1.0, aug_hflip=0.0,
+                 aug_noise_std=0.0, dropout=0.0, embedding_dropout=0.0)
+
+    # (a) precision 16: 3 SGD steps from the checkpoint's weights, card against
+    # CPU (and against the card's float32 steps, for scale)
+    cfg_a = base.replace(precision=16, batch=B_TRAIN_CHECK, **exact)
+    batch_a = caption_batch(vocab, B_TRAIN_CHECK, seed=11)
+    runs = {}
+    for name, d, c in (("card", dev, cfg_a), ("cpu", torch.device("cpu"), cfg_a),
+                       ("card f32", dev, cfg_a.replace(precision=32))):
+        tr = loop.Trainer(c, device=d)
+        tr.model.load_state_dict(ckpt_model.state_dict())
+        runs[name] = (tr, torch.stack([torch.stack([m["loss"], m["ce_loss"]])
+                                       for m in (tr.train_step(batch_a) for _ in range(3))]).cpu())
+
+    def gap(a, b):
+        (ta, ma), (tb, mb) = runs[a], runs[b]
+        return (((ma - mb).abs() / mb.abs()).max().item(),
+                max(max_rel_err(ta.model.decoder.state_dict(),
+                                tb.model.decoder.state_dict()).values()))
+    (loss_rel, dec_err), (loss_f32, dec_f32) = gap("card", "cpu"), gap("card", "card f32")
+    print(f"[settings] (a) 3 bf16 SGD steps at B={B_TRAIN_CHECK}, card against CPU: losses "
+          f"{runs['card'][1][:, 0].tolist()}, max rel err of loss and CE {loss_rel:.2e}, "
+          f"decoder params {dec_err:.2e} of each leaf's scale (tolerances {BF16_LOSS_TOL:g}, "
+          f"{BF16_PARAM_TOL:g}); bf16 against f32 on the card: {loss_f32:.2e}, {dec_f32:.2e}",
+          flush=True)
+    check(all(p.dtype == torch.float32 for p in runs["card"][0].model.parameters()),
+          "settings (a): the weights stay float32 at precision 16")
+    check(loss_rel <= BF16_LOSS_TOL, f"settings (a): bf16 loss and CE, card against CPU, "
+          f"within {BF16_LOSS_TOL} ({loss_rel})")
+    check(dec_err <= BF16_PARAM_TOL, f"settings (a): bf16 decoder parameters, card against "
+          f"CPU, within {BF16_PARAM_TOL} ({dec_err})")
+    check(loss_f32 >= BF16_APART * loss_rel, f"settings (a): the bf16 losses {loss_f32} from "
+          f"float32's on the card, not {BF16_APART} x their gap to the CPU's ({loss_rel})")
+    out["a"] = {"losses": runs["card"][1][:, 0].tolist(), "loss_ce_rel_err": loss_rel,
+                "decoder_param_err": dec_err, "vs_f32": {"loss": loss_f32, "decoder": dec_f32}}
+    del runs
+
+    batch = caption_batch(vocab, B_TRAIN, seed=12)
+
+    def peak_since(held):
+        return (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+
+    def step_times(trainer, warmup=3):
+        ms = cuda_ms(lambda: trainer.train_step(batch), warmup=warmup, reps=10)
+        busy, parts = train_busy(trainer, batch)
+        return {"ms": ms, "imgs_per_s": B_TRAIN / ms * 1e3, "busy_ms": busy,
+                "device_idle": 1 - busy / ms, "busy_parts_ms": parts}
+
+    # (a) 30 steps of the n64 settings at bf16, then the step's times
+    stamps["a (30 steps)"] = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr = loop.Trainer(base.replace(precision=16), device=dev)
+    loss = torch.stack([tr.train_step(batch)["loss"] for _ in range(TRAIN_STEPS)]).cpu()
+    peak = peak_since(held)
+    first, last = loss[:5].mean().item(), loss[-5:].mean().item()
+    print(f"[settings] (a) {TRAIN_STEPS} bf16 steps of the n64 settings at B={B_TRAIN}: "
+          f"loss {loss[0]:.4f} -> {loss[-1]:.4f}, mean of steps 1-5 {first:.4f}, of the "
+          f"last 5 {last:.4f} ({last / first:.3f}); peak memory {peak:.3f} GiB (f32: "
+          f"{step_f32['peak_memory_gib']:.3f})", flush=True)
+    check(bool(torch.isfinite(loss).all()), "settings (a): every bf16 loss is finite")
+    check(last <= 0.9 * first, f"settings (a): the bf16 loss falls by 10 % ({last} > 0.9 x {first})")
+    out["a"].update(loss=loss.tolist(), first5=first, last5=last, peak_memory_gib=peak,
+                    step=step_times(tr))
+    del tr
+
+    # (b) microbatch 16 at B 64: with the eval-mode frozen encoder (SGD, no
+    # draws) chunking changes nothing; with train-mode BatchNorm, times only
+    stamps["b"] = time.perf_counter()
+    cfg_b = base.replace(frozen_encoder_eval=True, batch=B_TRAIN, **exact)
+    full = loop.Trainer(cfg_b, device=dev)
+    chunked = loop.Trainer(cfg_b.replace(microbatch=B_TRAIN // 4), device=dev)
+    chunked.model.load_state_dict(full.model.state_dict())
+    mf, mc = zip(*[(full.train_step(batch), chunked.train_step(batch)) for _ in range(3)])
+    stack = lambda ms: torch.stack([torch.stack([m[k] for k in sorted(m)]) for m in ms]).cpu()
+    metric_rel = ((stack(mc) - stack(mf)).abs() / stack(mf).abs().clamp_min(1e-30)).max().item()
+    w_err = max(max_rel_err(chunked.model.state_dict(), full.model.state_dict()).values())
+    del full, chunked
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr = loop.Trainer(base.replace(batch=B_TRAIN, microbatch=B_TRAIN // 4), device=dev)
+    t_mb = {"ms": cuda_ms(lambda: tr.train_step(batch), warmup=3, reps=10)}
+    t_mb.update(imgs_per_s=B_TRAIN / t_mb["ms"] * 1e3, peak_memory_gib=peak_since(held))
+    del tr
+    print(f"[settings] (b) microbatch {B_TRAIN // 4} at B={B_TRAIN}, frozen_encoder_eval, 3 SGD steps: "
+          f"weights within {w_err:.2e} of the full step (each leaf's scale), metrics "
+          f"{metric_rel:.2e}; with train-mode BatchNorm {t_mb['ms']:.3f} ms per step, peak "
+          f"{t_mb['peak_memory_gib']:.3f} GiB (the full f32 step: {step_f32['ms']:.3f} ms, "
+          f"{step_f32['peak_memory_gib']:.3f} GiB)", flush=True)
+    check(w_err <= 1e-5, f"settings (b): microbatch weights within 1e-5 of the full step ({w_err})")
+    out["b"] = {"weights_err": w_err, "metrics_rel_err": metric_rel, "train_bn_step": t_mb}
+
+    with tempfile.TemporaryDirectory(prefix="sat_settings_") as tmp:
+        # (c) accumulate 2 with the header's settings (bf16, staged data in
+        # chunks): the CLI straight (with (e)'s profile_dir), and a run stopped
+        # after step 3, between two mini steps, resumed through --resume
+        stamps["c"] = time.perf_counter()
+        cfg_c = header.replace(json=js, epochs=1, accumulate=2)
+        prof_dir = os.path.join(tmp, "profile")
+        straight = fit_trainer(args_from_config(cfg_c.replace(profile_dir=prof_dir))
+                               + ["--log_root", os.path.join(tmp, "c")], None)
+        half = loop.Trainer(cfg_c, log_root=os.path.join(tmp, "c_half"), device=dev)
+        half.current_epoch = 0
+        half.train_epoch(max_batches=3)
+        mid = os.path.join(tmp, "mid.ckpt")
+        save_checkpoint(mid, half.cfg, half._checkpoint_tree())
+        _, raw = load_checkpoint(mid)
+        loaded = {}
+        resumed = fit_trainer(["--resume", mid, "--epochs", "1", "--log_root",
+                               os.path.join(tmp, "c_cli")], None,
+                              on_start=lambda t: loaded.update(state=accumulated_state(t)))
+        torch.cuda.synchronize()
+        keys = set(raw["opt_state"])
+        at_mid, ref_mid = loaded["state"], accumulated_state(half)
+        (gap_mid, exact_mid), (gap_end, exact_end) = (
+            state_gap(at_mid[0], ref_mid[0]), state_gap(*(accumulated_state(t)[0]
+                                                          for t in (resumed, straight))))
+        counters = [accumulated_state(t)[1] for t in (resumed, straight)]
+        print(f"[settings] (c) accumulate 2: opt_state keys {sorted(keys)}, mini_step "
+              f"{int(raw['opt_state']['mini_step'])} after step 3; --resume read it bit for "
+              f"bit: {exact_mid and at_mid[1] == ref_mid[1]} (gap {gap_mid:.2e}); the resumed "
+              f"run ends at step {resumed.global_step}, counters {counters[0]} (straight "
+              f"{counters[1]}), weights, acc_grads and Adam moments bit for bit: {exact_end} "
+              f"(gap {gap_end:.2e})", flush=True)
+        check(keys == {"mini_step", "gradient_step", "inner_opt_state", "acc_grads",
+                       "skip_state"} and int(raw["opt_state"]["mini_step"]) == 1,
+              f"settings (c): opt_state has MultiSteps' five keys, mid-accumulation ({keys})")
+        check(exact_mid and at_mid[1] == ref_mid[1], "settings (c): --resume reads the "
+              "weights, acc_grads, moments and counters bit for bit")
+        check(exact_end and counters[0] == counters[1] and resumed.global_step ==
+              straight.global_step == len(straight.train_loader),
+              "settings (c): the resumed run ends bit for bit with the straight run")
+        out["c"] = {"keys": sorted(keys), "bit_for_bit_at_load": exact_mid,
+                    "bit_for_bit_at_end": exact_end, "gap_end": gap_end,
+                    "counters": counters[0]}
+
+        # (e) profile_dir: the straight run's first epoch
+        files, n_kernels = trace_kernels(prof_dir)
+        print(f"[settings] (e) profile_dir: {len(files)} trace file(s), "
+              f"{sum(os.path.getsize(f) for f in files) / 2 ** 20:.1f} MiB, "
+              f"{n_kernels} CUDA kernel events", flush=True)
+        check(len(files) == 1 and n_kernels > 0, "settings (e): fit's trace lists CUDA kernels")
+        out["e"] = {"trace_files": len(files), "kernel_events": n_kernels}
+        del straight, half, resumed
+
+        # (d) device_resident_data, 2 epochs of 8 steps: the host path, then the
+        # staged data per step and in chunks of 4 (bit for bit with the host
+        # path) and of 8 (timed); epoch 2 of each timed run in a profiler window
+        stamps["d"] = time.perf_counter()
+        cfg_d = header.replace(json=js, epochs=2)
+        runs = {}
+        for tag, kw in (("host", dict(device_resident_data=False)),
+                        ("spd 1", dict(device_resident_data=True, steps_per_dispatch=1)),
+                        ("spd 4", dict(device_resident_data=True, steps_per_dispatch=4)),
+                        ("spd 8", dict(device_resident_data=True, steps_per_dispatch=8))):
+            tr = loop.Trainer(cfg_d.replace(**kw), log_root=os.path.join(tmp, "d"),
+                              device=dev)
+            logged, real = [], tr.logger.scalar
+            tr.logger.scalar = lambda t, v, st, real=real, logged=logged: (
+                logged.append((t, float(v), st)) if "images_per_sec" not in t else None,
+                real(t, v, st))
+            epochs = []
+            for epoch in range(2):
+                tr.current_epoch = epoch
+                window = epoch == 1 and tag != "spd 4"
+                torch.cuda.synchronize()
+                with device_window() if window else contextlib.nullcontext() as prof:
+                    t0 = time.perf_counter()
+                    tr.train_epoch()
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                busy = (sum(e.device_time_total for e in window_events(prof)) / 1e6
+                        if window else None)
+                KS.launches = 0
+                val = tr.validate()
+                torch.cuda.synchronize()
+                tm = tr.last_train_timings
+                epochs.append({"wall_s": wall, "imgs_per_s": tm["images"] / tm["seconds"],
+                               "busy_s": busy, "device_idle": busy and 1 - busy / wall,
+                               "bleu4": val["bleu4"], "step_calls": KS.launches})
+            runs[tag] = (tr.model.state_dict(), logged, epochs, dict(tr.staging_seconds))
+            del tr
+        ref = runs["host"]
+        for tag in ("spd 1", "spd 4"):
+            state, logged, epochs, _ = runs[tag]
+            gap_w, exact_w = tensors_gap(
+                {k: v for k, v in state.items() if v.is_floating_point()},
+                {k: v for k, v in ref[0].items() if v.is_floating_point()})
+            same_log = len(logged) == len(ref[1]) and all(
+                a[0] == b[0] and a[2] == b[2] and abs(a[1] - b[1]) <= 1e-6 * max(1, abs(b[1]))
+                for a, b in zip(logged, ref[1]))
+            bleu = [e["bleu4"] for e in epochs]
+            print(f"[settings] (d) {tag} against the host path: weights and statistics bit "
+                  f"for bit: {exact_w} (gap {gap_w:.2e}); {len(logged)} logged points equal: "
+                  f"{same_log}; BLEU-4 {bleu} (host {[e['bleu4'] for e in ref[2]]}); step "
+                  f"calls in validation {[e['step_calls'] for e in epochs]}", flush=True)
+            check(gap_w <= 1e-6, f"settings (d) {tag}: weights within 1e-6 of the host path")
+            check(same_log, f"settings (d) {tag}: the logged metrics are the host path's")
+            check(bleu == [e["bleu4"] for e in ref[2]], f"settings (d) {tag}: BLEU-4 {bleu}")
+            check(all(e["step_calls"] > 0 for e in epochs),
+                  f"settings (d) {tag}: the staged validation ran the step kernels")
+            out.setdefault("d", {})[tag] = {"bit_for_bit": exact_w, "gap": gap_w,
+                                            "bleu4": bleu}
+        for tag in ("host", "spd 1", "spd 8"):
+            _, _, epochs, staging = runs[tag]
+            print(f"[time] settings (d) {tag}: " + "; ".join(
+                f"epoch {i + 1} {e['wall_s']:.2f} s wall, {e['imgs_per_s']:.0f} training "
+                f"imgs/s" + (f", busy {e['busy_s']:.3f} s, device idle {e['device_idle']:.1%} "
+                             "(profiled)" if e["busy_s"] is not None else "")
+                for i, e in enumerate(epochs)) + (
+                f"; staging {staging['train']:.2f} s train, {staging['val']:.2f} s val"
+                if staging else ""), flush=True)
+            out["d"][tag] = dict(out["d"].get(tag, {}), epochs=epochs, staging_s=staging)
+    stamps["end"] = time.perf_counter()
+    names = list(stamps)
+    out["seconds"] = {a: stamps[b] - stamps[a] for a, b in zip(names, names[1:])}
+    t16 = out["a"]["step"]
+    print(f"[time] train step at bf16, B={B_TRAIN}: {t16['ms']:.3f} ms, {t16['imgs_per_s']:.0f} "
+          f"imgs/s, busy {t16['busy_ms']:.3f} ms, device idle {t16['device_idle']:.1%}, peak "
+          f"{out['a']['peak_memory_gib']:.3f} GiB; at f32 (phase 8 (e)) {step_f32['ms']:.3f} ms, "
+          f"busy {step_f32['busy_ms']:.3f} ms, idle {step_f32['device_idle']:.1%}, peak "
+          f"{step_f32['peak_memory_gib']:.3f} GiB; bf16 busy by part: " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in t16["busy_parts_ms"].items()), flush=True)
+    print("[time] seconds per part of phase 12: " + ", ".join(
         f"{k} {v:.1f}" for k, v in out["seconds"].items()), flush=True)
     return out
 
@@ -1637,6 +1977,12 @@ def main():
         # -- 11. resume at the n64 configuration -------------------------------------------
         stamps["resume"] = time.perf_counter()
         report["resume"] = resume_phase(dev, report["fit"]["json"])
+        # -- 12. the trainer's settings at the n64 configuration ----------------------------
+        stamps["settings"] = time.perf_counter()
+        report["settings"] = settings_phase(dev, report["fit"]["json"],
+                                            dict(report["train"]["step"],
+                                                 peak_memory_gib=report["train"]["b"][
+                                                     "peak_memory_gib"]))
     kernels[0].update(launches_serve=report["serve"]["a"]["step_calls"],
                       launches_evaluate=report["serve"]["d"]["step_calls"],
                       launches_resumed_fit=report["resume"]["b_step_calls"])

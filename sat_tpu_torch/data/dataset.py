@@ -155,9 +155,15 @@ class CaptionLoader:
         self.decoded += len(idxs)
         return imgs
 
-    def _trim_len(self, idxs: Sequence[int]) -> int:
-        t_needed = int(self.ds.lengths[list(idxs)].max()) + 1
-        return min(-(-t_needed // 4) * 4 + 1, self.ds.encoded_captions.shape[2])
+    def captions_of(self, idxs: Sequence[int]) -> Tuple[np.ndarray, np.ndarray]:
+        """Batch ``idxs``'s captions and lengths; with the bucket sampler the
+        captions trimmed to the batch's longest, rounded up to 4k + 1."""
+        captions = self.ds.encoded_captions[list(idxs)]
+        lengths = self.ds.lengths[list(idxs)]
+        if self._sampler is not None:
+            t_needed = int(lengths.max()) + 1
+            captions = captions[:, :, :min(-(-t_needed // 4) * 4 + 1, captions.shape[2])]
+        return captions, lengths
 
     def _make_batch(self, idxs: Sequence[int], stream: Tuple[int, int]) -> Batch:
         epoch, bi = stream
@@ -168,11 +174,8 @@ class CaptionLoader:
                              for i in idxs])
         else:
             imgs = self._pool_batch(idxs, rng)
-        captions = self.ds.encoded_captions[list(idxs)]
-        if self._sampler is not None:
-            captions = captions[:, :, :self._trim_len(idxs)]
-        return {"images": imgs, "captions": captions,
-                "lengths": self.ds.lengths[list(idxs)]}
+        captions, lengths = self.captions_of(idxs)
+        return {"images": imgs, "captions": captions, "lengths": lengths}
 
     def batch_plans(self) -> List[Tuple[List[int], Tuple[int, int]]]:
         """One epoch's plan, (dataset indices, crop stream key) per batch,

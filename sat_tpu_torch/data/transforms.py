@@ -3,6 +3,9 @@
 random-resized crop and horizontal flip as one axis-aligned bilinear
 resample (two products with interpolation matrices, the math of
 ``sat_tpu/ops/image_ops.py::separable_resample_mxu``), then Gaussian noise.
+At ``precision 16`` all of it runs in bfloat16, as JAX's: the pixels become
+bf16 after the uint8 load, the resample multiplies bf16 with float32 sums
+and rounds each product back to bf16, and the noise is bf16.
 
   aug_scale      -> RandomResizedCrop(scale=(aug_scale, 1)), where != 1
   aug_hflip      -> RandomHorizontalFlip(p), only where 0 < p < 1
@@ -53,11 +56,12 @@ def separable_resample(x: torch.Tensor, py: torch.Tensor, px: torch.Tensor
                        ) -> torch.Tensor:
     """Bilinear resampling of x (B, H, W, C) at rows py (B, OH) and columns
     px (B, OW), pixel coordinates clamped to the image, as two batched
-    products: rows first, then columns."""
+    products: rows first, then columns, each in x's type (the weights are
+    rounded to it; a bf16 product sums in float32 and rounds once)."""
     b, h, w, c = x.shape
     oh, ow = py.shape[1], px.shape[1]
-    wy = _bilinear_weight_matrix(py.clamp(0.0, h - 1.0), h)     # (B, OH, H)
-    wx = _bilinear_weight_matrix(px.clamp(0.0, w - 1.0), w)     # (B, OW, W)
+    wy = _bilinear_weight_matrix(py.clamp(0.0, h - 1.0), h).to(x.dtype)   # (B, OH, H)
+    wx = _bilinear_weight_matrix(px.clamp(0.0, w - 1.0), w).to(x.dtype)   # (B, OW, W)
     rows = torch.matmul(wy, x.reshape(b, h, w * c))             # (B, OH, W*C)
     # columns as one (OW, W) x (W, OH*C) product per image: a broadcast
     # (B, 1, OW, W) x (B, OH, W, C) matmul would expand wx OH-fold
@@ -67,8 +71,8 @@ def separable_resample(x: torch.Tensor, py: torch.Tensor, px: torch.Tensor
 
 
 def build_train_augment(cfg: SATConfig) -> Augment:
-    """augment(generator, images uint8 (B, S, S, 3)) -> float32 images in
-    [0, 1] plus noise, on the images' device."""
+    """augment(generator, images uint8 (B, S, S, 3)) -> images in [0, 1]
+    plus noise, on the images' device, float32 (bf16 at precision 16)."""
     if 0.0 < cfg.aug_optical_strength <= 1.0:
         raise NotImplementedError("aug_optical_strength (perspective, affine "
                                   "and rotation warps) is not ported yet")
@@ -78,9 +82,12 @@ def build_train_augment(cfg: SATConfig) -> Augment:
     use_crop = cfg.aug_scale != 1.0
     # the reference adds RandomHorizontalFlip only where 0 < p < 1
     use_flip = 0.0 < cfg.aug_hflip < 1.0
+    dtype = torch.bfloat16 if cfg.precision == 16 else torch.float32
+    # JAX multiplies by the standard deviation cast to the images' type
+    noise_std = torch.tensor(cfg.aug_noise_std).to(dtype).item()
 
     def augment(generator: torch.Generator, images: torch.Tensor) -> torch.Tensor:
-        x = val_preprocess(images)
+        x = images.to(dtype) / 255.0
         b, dev = x.shape[0], x.device
         if use_crop:
             theta = _rrc_theta(generator, b, cfg.aug_scale, dev)
@@ -99,8 +106,8 @@ def build_train_augment(cfg: SATConfig) -> Augment:
             flip = _coin(generator, b, cfg.aug_hflip, dev)
             x = torch.where(flip[:, None, None, None], x.flip(2), x)
         if cfg.aug_noise_std > 0:
-            x = x + torch.randn(x.shape, device=dev, generator=generator) \
-                * cfg.aug_noise_std
+            x = x + torch.randn(x.shape, device=dev, generator=generator,
+                                dtype=dtype) * noise_std
         return x
 
     return augment

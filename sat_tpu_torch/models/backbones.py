@@ -38,19 +38,29 @@ class BatchNorm(nn.BatchNorm2d):
     * ``y = (x - mean) * (rsqrt(var + eps) * scale) + bias``;
     * ``running = 0.9 * running + 0.1 * batch``, with the BIASED variance,
       where ``nn.BatchNorm2d`` takes the unbiased one (a factor n / (n - 1),
-      1.14 at a 2 x 2 map of two images)."""
+      1.14 at a 2 x 2 map of two images).
+
+    Under float32 running statistics, a lower-precision input (bf16
+    training casts the weights, not the statistics) is normalised as flax
+    does it: the statistics at float32, the whole normalisation in float32
+    on the promoted input, weight and bias, and one rounding back to the
+    input's type."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
+        if not self.training and x.dtype == self.running_mean.dtype:
             return super().forward(x)
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-        with torch.no_grad():
-            for run, new in ((self.running_mean, mean), (self.running_var, var)):
-                run.mul_(FLAX_MOMENTUM).add_(new, alpha=1.0 - FLAX_MOMENTUM)
+        xs = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+        if self.training:
+            mean = xs.mean(dim=(0, 2, 3))
+            var = torch.clamp((xs * xs).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                for run, new in ((self.running_mean, mean), (self.running_var, var)):
+                    run.mul_(FLAX_MOMENTUM).add_(new, alpha=1.0 - FLAX_MOMENTUM)
+        else:
+            mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean[:, None, None]) * mul[:, None, None] \
-            + self.bias[:, None, None]
+        y = (xs - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
 
 
 def _bn(ch: int) -> BatchNorm:

@@ -25,24 +25,49 @@ The checkpoints hold the weights, the optimizer state in optax's layout
 (``train/opt_state.py``), the counters, the scheduler, early-stopping and
 top-k state, as JAX's do, and ``cfg.resume`` continues from any of them, a
 JAX package's file too: a mid-epoch file (``restart-{step}.ckpt``)
-re-enters its epoch and skips the batches already trained.  Not ported
-yet, and raising ``NotImplementedError``: ``precision 16``, ``microbatch``,
-``accumulate``, ``device_resident_data`` (with it ``steps_per_dispatch``,
-which acts only there) and ``profile_dir``."""
+re-enters its epoch and skips the batches already trained.
+
+The settings of JAX's step and epoch, as JAX runs them:
+
+* ``precision 16``: the augment and the images in bf16, and every float32
+  weight cast to bf16 inside the loss, so the gradients reach the float32
+  weights; the BatchNorm statistics stay float32 (flax's reductions); no
+  loss scaling, no ``torch.autocast``.  Validation decodes at float32.
+* ``microbatch``: the batch in ``batch / microbatch`` chunks, one forward
+  and backward each, the gradients summed; each chunk's CE weighted by its
+  share of the batch's target tokens and its attention term by
+  ``1 / chunks``, so the sum is the whole batch's loss; BatchNorm
+  statistics carry from chunk to chunk.  A chunk's coins and dropout come
+  from ``(cfg.seed, global_step, chunk)`` (JAX splits its key per chunk:
+  the draws differ from JAX's, the rule does not).
+* ``accumulate``: ``train/optim.py::MultiSteps``, optax.MultiSteps' mean of
+  ``accumulate`` gradients; the clip, the update and Adam's count only on
+  every ``accumulate``-th step, at that step's LRs; BatchNorm statistics
+  and the LR schedule move every step.
+* ``device_resident_data``: each split decoded once into a uint8 tensor on
+  the device (one centre crop for a larger image); a step gathers its rows
+  by index, validation too.  ``steps_per_dispatch`` is accepted and
+  changes nothing: JAX runs that many steps in one dispatch, which torch
+  has no counterpart of, so a staged epoch runs step by step, which is
+  JAX's chunked run's result.
+* ``profile_dir``: a ``torch.profiler`` trace of ``fit``'s first train
+  epoch (``utils/timing.py::maybe_profile``), validation outside it."""
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
 import sys
 import time
-from typing import Any, Dict, Iterable, List, Mapping, Optional, Union
+from typing import Any, Dict, Iterable, Iterator, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
 from ..config import SATConfig
 from ..data.dataset import CaptionDataset, CaptionLoader
+from ..data.images import square_crop
 from ..data.transforms import build_train_augment, val_preprocess
 from ..decode.api import unpack_beam_result
 from ..decode.beam import BeamResult, beam_search
@@ -51,28 +76,36 @@ from ..models.jax_import import model_to_jax_tree
 from ..models.model import SATModel
 from ..models.sat import train_forward_loss_grouped
 from ..utils.platform import resolve_device
-from ..utils.timing import StepTimer
+from ..utils.timing import StepTimer, maybe_profile
 from .checkpoints import (RestartCheckpointManager, TopKCheckpointManager,
                           load_checkpoint, save_checkpoint)
 from .logging import MetricsLogger, next_version_dir
 from .opt_state import load_optax_state, optax_state_dict
-from .optim import apply_group_lrs, build_optimizer, clip_gradients, step
+from .optim import MultiSteps, apply_group_lrs, build_optimizer, clip_gradients, step
 from .schedules import LRScheduler
 from .tf_schedule import teacher_forcing_epsilon
 
-Batch = Mapping[str, Any]   # images uint8 (B, S, S, 3), captions (B, R, T), lengths (B, R)
+# images uint8 (B, S, S, 3) or, with staged data, image_idx (B,);
+# captions (B, R, T), lengths (B, R)
+Batch = Mapping[str, Any]
 
 
-def _unported(cfg: SATConfig) -> Optional[str]:
-    for on, what in ((cfg.precision == 16, "precision 16"),
-                     (cfg.microbatch, "microbatch"),
-                     (cfg.accumulate > 1, "accumulate"),
-                     (cfg.device_resident_data,
-                      "device_resident_data (and its steps_per_dispatch)"),
-                     (cfg.profile_dir, "profile_dir")):
-        if on:
-            return what
-    return None
+@contextlib.contextmanager
+def cast_weights(module: torch.nn.Module, dtype: torch.dtype) -> Iterator[None]:
+    """Within the block, each float32 parameter of ``module`` is its cast to
+    ``dtype`` (as ``torch.func.functional_call`` swaps parameters): a
+    differentiable copy, so a backward reaches the float32 weights.  Buffers
+    (the BatchNorm statistics) are not cast.  Nothing changes at float32."""
+    swapped = [] if dtype == torch.float32 else [
+        (m, name, p) for m in module.modules() for name, p in m._parameters.items()
+        if p is not None and p.dtype == torch.float32]
+    for m, name, p in swapped:
+        m._parameters[name] = p.to(dtype)
+    try:
+        yield
+    finally:
+        for m, name, p in swapped:
+            m._parameters[name] = p
 
 
 def val_decode(model: SATModel, cfg: SATConfig, images: Any) -> BeamResult:
@@ -116,13 +149,18 @@ class Trainer:
                  device: Union[str, torch.device, None] = None,
                  steps_per_epoch: Optional[int] = None):
         self.device = resolve_device(device)
-        what = _unported(cfg)
-        if what:
-            raise NotImplementedError(f"{what} is not ported yet")
         self.train_loader = self.val_loader = None
         if cfg.json is not None or dataset is not None:
             cfg = self._build_data(cfg, dataset)
             steps_per_epoch = steps_per_epoch or len(self.train_loader)
+        elif cfg.device_resident_data:
+            raise ValueError("device_resident_data stages the dataset's splits: "
+                             "it needs cfg.json or a dataset")
+        if cfg.microbatch and (cfg.microbatch >= cfg.batch or cfg.batch % cfg.microbatch):
+            raise ValueError(
+                f"--microbatch {cfg.microbatch} must be a divisor of --batch "
+                f"{cfg.batch} smaller than it (the step runs batch/microbatch "
+                "gradient chunks)")
         if cfg.vocab_stoi is None or cfg.vocab_size is None:
             raise ValueError("Trainer needs the vocabulary in the config "
                              "(vocab_stoi, vocab_size) or a dataset")
@@ -142,6 +180,9 @@ class Trainer:
         self.cfg = cfg = self.model.cfg          # encoder_dim written back
         self.model.decoder.requires_grad_(True)
         self.optimizer, _ = build_optimizer(cfg, self.model.named_parameters())
+        self.multisteps = (MultiSteps(cfg.accumulate, self.model.named_parameters())
+                           if cfg.accumulate > 1 else None)
+        self.compute_dtype = torch.bfloat16 if cfg.precision == 16 else torch.float32
         self.scheduler = LRScheduler(cfg, steps_per_epoch=steps_per_epoch)
         self.augment = build_train_augment(cfg)
         self.encoder_on = cfg.encoder_finetune_after > 0 and cfg.encoder_lr > 0
@@ -164,6 +205,11 @@ class Trainer:
                                                          cfg.lr_warmup_steps)
         if cfg.resume:
             self._resume(cfg.resume, steps_per_epoch)
+        self.staging_seconds: Dict[str, float] = {}
+        self._staged_images = self._staged_val_images = None
+        if cfg.device_resident_data:
+            self._staged_images = self._stage_split(self.train_ds, self.train_loader, "train")
+            self._staged_val_images = self._stage_split(self.val_ds, self.val_loader, "val")
 
     def _resume(self, path: str, steps_per_epoch: int) -> None:
         """Weights, BatchNorm statistics, optimizer state, counters,
@@ -177,7 +223,8 @@ class Trainer:
             raise ValueError(f"{path} has no 'opt_state': resume needs a checkpoint "
                              "written by training (top-k, last.ckpt or restart-*.ckpt)")
         self.model.load_state_dict(model_from_jax_tree(self.cfg, raw).state_dict())
-        load_optax_state(self.cfg, self.model, self.optimizer, raw["opt_state"])
+        load_optax_state(self.cfg, self.model, self.optimizer, raw["opt_state"],
+                         self.multisteps)
         self.global_step = int(raw["step"])
         self._resume_skip_batches = self.global_step % max(steps_per_epoch, 1)
         self.current_epoch = int(raw["epoch"]) + (self._resume_skip_batches == 0)
@@ -216,17 +263,51 @@ class Trainer:
             cache_images=cfg.cache_images, native_decode=cfg.native_decode)
         return cfg
 
-    def step_generator(self) -> torch.Generator:
+    def _stage_split(self, ds: CaptionDataset, loader: CaptionLoader,
+                     tag: str) -> torch.Tensor:
+        """The split decoded once into one uint8 (N, S, S, 3) tensor on the
+        device.  Images that decode to S x S are the host path's exactly
+        (the train crop is then the identity); a larger one gets one centre
+        crop here, which for val is the host path's crop and for train loses
+        the per-epoch crop offset, with a warning."""
+        size = self.cfg.input_size
+        staged = np.empty((len(ds), size, size, 3), np.uint8)
+        t0 = time.perf_counter()
+        n_cropped = 0
+        for i in range(len(ds)):
+            arr = loader._decode_full(i)
+            if arr.shape[:2] != (size, size):
+                n_cropped += 1
+                arr = square_crop(arr, size)
+            staged[i] = arr
+        if n_cropped and tag == "train":
+            print(f"WARNING: {n_cropped}/{len(ds)} train images were larger than "
+                  f"{size}x{size}; device_resident staged a fixed center crop — "
+                  "per-epoch crop translation is lost for those images")
+        out = torch.from_numpy(staged).to(self.device)
+        if out.is_cuda:
+            torch.cuda.synchronize(out.device)
+        self.staging_seconds[tag] = time.perf_counter() - t0
+        print(f"device-resident staging: {len(ds)} {tag} images "
+              f"({staged.nbytes / 1e9:.2f} GB uint8) decoded + uploaded in "
+              f"{self.staging_seconds[tag]:.1f}s", flush=True)
+        return out
+
+    def step_generator(self, chunk: Optional[int] = None) -> torch.Generator:
         """The generator of this step's draws, seeded from
-        ``(cfg.seed, global_step)``."""
-        seed = np.random.SeedSequence([self.cfg.seed, 0x5A7, self.global_step])
+        ``(cfg.seed, global_step)``, or of a microbatch chunk's coins and
+        dropout, seeded from ``(cfg.seed, global_step, chunk)``."""
+        key = [self.cfg.seed, 0x5A7, self.global_step] + ([] if chunk is None else [chunk])
+        seed = np.random.SeedSequence(key)
         return torch.Generator(self.device).manual_seed(
             int(seed.generate_state(1, np.uint64)[0]))
 
     def train_step(self, batch: Batch) -> Dict[str, torch.Tensor]:
-        """One update on ``batch``; returns its metrics as 0-d tensors on
-        the device (``loss``, ``ce_loss``, ``att_loss``, ``accuracy``)
-        without waiting for them."""
+        """One step on ``batch``: augment, forward and backward (by
+        microbatch chunks where set), clip and update (with ``accumulate``,
+        only on every k-th step, on the mean of the k gradients); returns
+        its metrics as 0-d tensors on the device (``loss``, ``ce_loss``,
+        ``att_loss``, ``accuracy``) without waiting for them."""
         cfg = self.cfg
         lrs = self.scheduler.current_lrs(self.global_step)
         train_encoder = (self.encoder_on
@@ -235,26 +316,78 @@ class Trainer:
             lrs = dict(lrs, encoder=0.0)
         epsilon = teacher_forcing_epsilon(cfg, self.current_epoch)
         gen = self.step_generator()
-        images, caps, lens = (torch.as_tensor(batch[k]).to(self.device)
-                              for k in ("images", "captions", "lengths"))
+        if "image_idx" in batch:
+            idx = torch.as_tensor(batch["image_idx"]).to(self.device)
+            images = self._staged_images.index_select(0, idx)
+        else:
+            images = torch.as_tensor(batch["images"]).to(self.device)
+        caps, lens = (torch.as_tensor(batch[k]).to(self.device)
+                      for k in ("captions", "lengths"))
 
         images = self.augment(gen, images)
-        if not train_encoder and cfg.frozen_encoder_eval:
-            annots = self.model.encode(images)     # eval mode, running stats
+        mb, b = cfg.microbatch, caps.shape[0]
+        if not (mb and 0 < mb < b and b % mb == 0):
+            metrics = self._forward(images, caps, lens, epsilon, gen, train_encoder)
+            metrics["loss"].backward()
         else:
-            with torch.set_grad_enabled(train_encoder):
-                annots = self.model.encode(images, train=True)
-        metrics = train_forward_loss_grouped(self.model.decoder, cfg, annots,
-                                             caps, lens, epsilon, gen)
-        metrics["loss"].backward()
-        clip_gradients(cfg, self.model.parameters())
-        apply_group_lrs(self.optimizer, lrs)
-        step(self.optimizer)
+            metrics = self._chunked_backward(images, caps, lens, epsilon, train_encoder)
+        if self.multisteps is None or self.multisteps.add(self.model.named_parameters()):
+            clip_gradients(cfg, self.model.parameters())
+            apply_group_lrs(self.optimizer, lrs)
+            step(self.optimizer)
         self.model.zero_grad(set_to_none=True)
 
         self.scheduler.on_train_batch_end(self.global_step)
         self.global_step += 1
         return {k: v.detach() for k, v in metrics.items()}
+
+    def _forward(self, images: torch.Tensor, caps: torch.Tensor, lens: torch.Tensor,
+                 epsilon: float, gen: torch.Generator, train_encoder: bool
+                 ) -> Dict[str, torch.Tensor]:
+        """The encoder and the grouped loss, on the weights cast to the
+        step's type: the encoder without autograd while frozen, in eval mode
+        there with ``frozen_encoder_eval``."""
+        cfg = self.cfg
+        with cast_weights(self.model, self.compute_dtype):
+            if not train_encoder and cfg.frozen_encoder_eval:
+                annots = self.model.encode(images)     # eval mode, running stats
+            else:
+                with torch.set_grad_enabled(train_encoder):
+                    annots = self.model.encode(images, train=True)
+            return train_forward_loss_grouped(self.model.decoder, cfg, annots, caps,
+                                              lens, epsilon, gen)
+
+    def _chunked_backward(self, images: torch.Tensor, caps: torch.Tensor,
+                          lens: torch.Tensor, epsilon: float, train_encoder: bool
+                          ) -> Dict[str, torch.Tensor]:
+        """One forward and backward per microbatch chunk, the gradients
+        summed: chunk i's objective is its CE times its share of the batch's
+        target tokens plus ``att_gamma`` times its attention term over the
+        number of chunks; the metrics are the whole batch's."""
+        cfg = self.cfg
+        mb = cfg.microbatch
+        nchunks, num_steps = caps.shape[0] // mb, caps.shape[2] - 1
+        valid = lambda ln: torch.clamp(ln.clamp(0, num_steps).sum().float(), min=1.0)
+        total_valid = valid(lens)
+        rows = []
+        for i in range(nchunks):
+            sl = slice(i * mb, (i + 1) * mb)
+            n_valid = valid(lens[sl])
+            m = self._forward(images[sl], caps[sl], lens[sl], epsilon,
+                              self.step_generator(chunk=i), train_encoder)
+            (m["ce_loss"] * (n_valid / total_valid)
+             + cfg.att_gamma * m["att_loss"] * (1.0 / nchunks)).backward()
+            rows.append(torch.stack([m["ce_loss"] * n_valid, m["accuracy"] * n_valid,
+                                     m["att_loss"]]).detach())
+        rows = torch.stack(rows)
+        ce, acc = rows[:, 0].sum() / total_valid, rows[:, 1].sum() / total_valid
+        att = rows[:, 2].mean()
+        return {"loss": ce + cfg.att_gamma * att, "ce_loss": ce, "att_loss": att,
+                "accuracy": acc}
+
+    def _n_updates(self) -> int:
+        """The optimizer's updates so far (Adam's ``count``)."""
+        return self.global_step if self.multisteps is None else self.multisteps.gradient_step
 
     def _flush(self, pending: List, epsilon: float, timer: StepTimer,
                rows: List[Dict[str, float]]) -> None:
@@ -278,6 +411,11 @@ class Trainer:
             rows.append(host)
         pending.clear()
 
+    def _staged_batch(self, idxs: List[int]) -> Dict[str, np.ndarray]:
+        """The loader's batch ``idxs`` with dataset indices for pixels."""
+        caps, lens = self.train_loader.captions_of(idxs)
+        return {"image_idx": np.asarray(idxs, np.int64), "captions": caps, "lengths": lens}
+
     def train_epoch(self, batches: Optional[Iterable[Batch]] = None,
                     max_batches: Optional[int] = None) -> Dict[str, float]:
         """One epoch, stopping after ``max_batches`` steps where given;
@@ -286,8 +424,9 @@ class Trainer:
         decoder's LR.
 
         ``batches=None`` takes the train loader at ``current_epoch``, whose
-        counter ``fit`` keeps, as in JAX; a caller who hands its own batches
-        drives the epochs through this call, which then advances
+        counter ``fit`` keeps, as in JAX (with staged data its plan); a
+        caller who hands its own
+        batches drives the epochs through this call, which then advances
         ``current_epoch``.  ``last_train_timings`` holds the epoch's host
         seconds, its images, and the seconds spent waiting on the batches."""
         cfg = self.cfg
@@ -295,7 +434,8 @@ class Trainer:
         if own:
             self.train_loader.set_epoch(self.current_epoch, self._resume_skip_batches)
             self._resume_skip_batches = 0
-            batches = self.train_loader
+            batches = (map(self._staged_batch, (idxs for idxs, _ in self.train_loader.batch_plans()))
+                       if self._staged_images is not None else self.train_loader)
         epsilon = teacher_forcing_epsilon(cfg, self.current_epoch)
         timer, pending, rows = StepTimer(), [], []
         flush_n = max(1, cfg.log_every)
@@ -309,7 +449,7 @@ class Trainer:
             if batch is None:
                 break
             lr_dec = self.scheduler.current_lrs(self.global_step)["decoder"]
-            n = len(batch["images"])
+            n = len(batch["lengths"])
             pending.append((self.train_step(batch), self.global_step - 1, n))
             done, images = done + 1, images + n
             if len(pending) >= flush_n:
@@ -320,16 +460,21 @@ class Trainer:
         if hasattr(it, "close"):
             it.close()
         self._flush(pending, epsilon, timer, rows)
+        means = self._end_epoch(rows)
+        self.last_train_timings = {"seconds": time.perf_counter() - t_start,
+                                   "images": images, "data_wait": wait}
+        if not own:
+            self.current_epoch += 1
+        return means
+
+    def _end_epoch(self, rows: List[Dict[str, float]]) -> Dict[str, float]:
+        """The epoch's means; the scheduler's epoch hook; the epoch's log."""
         means = {k: float(np.mean([r[k] for r in rows])) for k in rows[0]} if rows else {}
         self.scheduler.on_train_epoch_end(self.current_epoch)
         if self.logger is not None:
             self.logger.train_epoch(
                 means, self.current_epoch,
                 lr=self.scheduler.current_lrs(self.global_step)["decoder"])
-        self.last_train_timings = {"seconds": time.perf_counter() - t_start,
-                                   "images": images, "data_wait": wait}
-        if not own:
-            self.current_epoch += 1
         return means
 
     def _checkpoint_tree(self) -> Dict[str, Any]:
@@ -337,7 +482,7 @@ class Trainer:
         tree = model_to_jax_tree(self.model)
         tree.update(
             opt_state=optax_state_dict(self.cfg, self.model, self.optimizer,
-                                       self.global_step),
+                                       self._n_updates(), self.multisteps),
             step=self.global_step, epoch=self.current_epoch,
             scheduler=dict(self.scheduler.state_dict()),
             early_stop={"best": (self.early_stop_best
@@ -358,7 +503,14 @@ class Trainer:
         embedding = self.model.decoder.embedding.detach().cpu().numpy()
         self.val_loader.set_epoch(self.current_epoch)
         batch_metrics = []
-        batches = itertools.islice(iter(self.val_loader), limit)
+        if self._staged_val_images is None:
+            batches = itertools.islice(iter(self.val_loader), limit)
+        else:
+            # pixels from the staged split; scoring reads the refs from the dataset
+            ds = self.val_ds
+            batches = ({"image_idx": idxs, "captions": ds.encoded_captions[idxs],
+                        "lengths": ds.lengths[idxs]}
+                       for idxs, _ in self.val_loader.batch_plans()[:limit])
         while True:
             t0 = time.perf_counter()
             batch = next(batches, None)
@@ -366,7 +518,9 @@ class Trainer:
             if batch is None:
                 break
             t0 = time.perf_counter()
-            res = _fetch_without_alphas(val_decode(self.model, cfg, batch["images"]))
+            images = (batch["images"] if "images" in batch else self._staged_val_images[
+                torch.as_tensor(batch["image_idx"], device=self.device)])
+            res = _fetch_without_alphas(val_decode(self.model, cfg, images))
             tm["decode_fetch"] += time.perf_counter() - t0
             t0 = time.perf_counter()
             caps, _, _, ppl = unpack_beam_result(res, self.model.grid_hw)
@@ -400,12 +554,16 @@ class Trainer:
         """Train ``cfg.epochs`` epochs over the loader, validating every
         ``val_interval`` epochs, until early stopping; then write
         ``last.ckpt``.  Returns the last validation's means.
-        ``epoch_timings`` gets one entry per epoch."""
+        ``epoch_timings`` gets one entry per epoch.  With ``profile_dir``
+        the first epoch's training (not its validation) is traced there."""
         last_val: Dict[str, float] = {}
-        for epoch in range(self.current_epoch, self.cfg.epochs):
+        first_epoch = self.current_epoch
+        for epoch in range(first_epoch, self.cfg.epochs):
             self.current_epoch = epoch
             t0 = time.perf_counter()
-            train_means = self.train_epoch()
+            with maybe_profile(self.cfg.profile_dir if epoch == first_epoch else None,
+                               self.device):
+                train_means = self.train_epoch()
             val_t = None
             if (epoch + 1) % self.cfg.val_interval == 0:
                 last_val = self.validate()

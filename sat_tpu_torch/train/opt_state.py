@@ -21,7 +21,18 @@ too.
 torch's ``exp_avg``, ``exp_avg_sq`` and ``momentum_buffer`` are ``mu``,
 ``nu`` and ``trace``, its ``step`` is ``count``; leaves change layout
 through ``models/jax_import.py::jax_leaf_map``.  Before the first update
-torch holds no state, and the tree holds zeros, as ``tx.init`` gives."""
+torch holds no state, and the tree holds zeros, as ``tx.init`` gives.
+
+With ``accumulate > 1`` JAX wraps that transformation in
+``optax.MultiSteps``, whose state is the tree::
+
+    {"mini_step": int32, "gradient_step": int32,
+     "inner_opt_state": the tree above, "acc_grads": params tree,
+     "skip_state": {}}
+
+``train/optim.py::MultiSteps`` keeps ``mini_step``, ``gradient_step`` and
+``acc_grads`` (the running mean of the gradients, at every leaf of the
+params tree, frozen ones too); the inner counts are ``gradient_step``."""
 
 from __future__ import annotations
 
@@ -32,13 +43,14 @@ import torch
 
 from ..config import SATConfig
 from ..models.jax_import import from_jax_layout, jax_leaf_map, nest_leaves, to_jax_layout
-from .optim import FROZEN, LABEL_TO_LR_GROUP, label_params
+from .optim import FROZEN, LABEL_TO_LR_GROUP, MultiSteps, label_params
 
 Tree = Dict[str, Any]
 # torch's state key of each array optax keeps
 TORCH_KEY = {"mu": "exp_avg", "nu": "exp_avg_sq", "trace": "momentum_buffer"}
 # the keys of optax.MultiSteps' state (cfg.accumulate > 1)
-_MULTISTEPS = ("mini_step", "gradient_step", "inner_opt_state", "acc_grads")
+_MULTISTEPS = ("mini_step", "gradient_step", "inner_opt_state", "acc_grads",
+               "skip_state")
 
 
 def chain_states(cfg: SATConfig, label: str) -> List[Optional[str]]:
@@ -56,11 +68,21 @@ def chain_states(cfg: SATConfig, label: str) -> List[Optional[str]]:
 
 
 def optax_state_dict(cfg: SATConfig, model, optimizer: torch.optim.Optimizer,
-                     n_updates: int) -> Tree:
+                     n_updates: int, multisteps: Optional[MultiSteps] = None) -> Tree:
     """The ``opt_state`` tree of ``optimizer`` (built by
     ``build_optimizer(cfg, model.named_parameters())``) after ``n_updates``
-    updates: numpy leaves, C-contiguous, in JAX's layouts."""
+    updates: numpy leaves, C-contiguous, in JAX's layouts.  With
+    ``multisteps`` (``cfg.accumulate > 1``) the tree is ``MultiSteps``'
+    around it, and the updates are ``multisteps.gradient_step``."""
     leaf_map = jax_leaf_map(model)
+    if multisteps is not None:
+        return {"mini_step": np.asarray(multisteps.mini_step, np.int32),
+                "gradient_step": np.asarray(multisteps.gradient_step, np.int32),
+                "inner_opt_state": optax_state_dict(cfg, model, optimizer,
+                                                    multisteps.gradient_step),
+                "acc_grads": nest_leaves({path: to_jax_layout(multisteps.acc[n], perm)
+                                          for n, (path, perm) in leaf_map.items()}),
+                "skip_state": {}}
     named = dict(model.named_parameters())
     labels = label_params(cfg, named.items())
     masked = {path: {} for path, _ in leaf_map.values()}
@@ -124,23 +146,33 @@ def _node(tree: Tree, path) -> Any:
 
 @torch.no_grad()
 def load_optax_state(cfg: SATConfig, model, optimizer: torch.optim.Optimizer,
-                     sd: Tree) -> None:
+                     sd: Tree, multisteps: Optional[MultiSteps] = None) -> None:
     """Fill ``optimizer``'s state from an ``opt_state`` tree (numpy or CPU
-    tensor leaves) of ``cfg``'s transformation.  Raises ``ValueError`` for
-    a tree of another layout, e.g. ``optax.MultiSteps``' (accumulate)."""
+    tensor leaves) of ``cfg``'s transformation, and ``multisteps``' from
+    ``optax.MultiSteps``' tree where ``cfg.accumulate > 1``.  Raises
+    ``ValueError`` for a tree of another layout."""
     if not isinstance(sd, dict):
         raise ValueError(f"opt_state is a {type(sd).__name__}, not a tree")
-    if any(k in sd for k in _MULTISTEPS):
-        raise ValueError("opt_state is an optax.MultiSteps state (accumulate > 1), "
-                         "which the port does not read")
-    want, got = layout(optax_state_dict(cfg, model, optimizer, 0)), layout(sd)
+    is_multi = any(k in sd for k in _MULTISTEPS)
+    if is_multi != (multisteps is not None):
+        raise ValueError(f"opt_state is {'an' if is_multi else 'not an'} optax.MultiSteps "
+                         f"state, and cfg.accumulate is {cfg.accumulate}: "
+                         "the optimizer needs " + ("one" if multisteps else "none"))
+    blank = None if multisteps is None else MultiSteps(multisteps.k, model.named_parameters())
+    want, got = layout(optax_state_dict(cfg, model, optimizer, 0, blank)), layout(sd)
     if got != want:
         wrong = sorted(k for k in want.keys() | got.keys() if want.get(k, 0) != got.get(k, 0))
         raise ValueError(f"opt_state is not the layout of cfg's optimizer ({cfg.opt}): "
                          f"{len(wrong)} paths differ, e.g. {wrong[:3]}")
-    inner = sd["1"]["inner_states"]
     leaf_map = jax_leaf_map(model)
     named = dict(model.named_parameters())
+    if multisteps is not None:
+        multisteps.mini_step = int(np.asarray(sd["mini_step"]))
+        multisteps.gradient_step = int(np.asarray(sd["gradient_step"]))
+        multisteps.acc = {n: from_jax_layout(_node(sd["acc_grads"], path), perm).to(named[n])
+                          for n, (path, perm) in leaf_map.items()}
+        sd = sd["inner_opt_state"]
+    inner = sd["1"]["inner_states"]
     labels = label_params(cfg, named.items())
     scalar = torch.float64 if torch.get_default_dtype() == torch.float64 else torch.float32
     for label in (g["label"] for g in optimizer.param_groups):

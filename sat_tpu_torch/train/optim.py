@@ -18,11 +18,14 @@
   ``clip_grad_norm_`` with its 1e-6 epsilon, which JAX copies.
 * ``step`` counts every leaf of every group at every update: optax's Adam
   counts a step on zero gradients too, so a leaf without a gradient (an
-  encoder still frozen before ``encoder_finetune_after``) steps on zeros."""
+  encoder still frozen before ``encoder_finetune_after``) steps on zeros.
+* ``accumulate > 1`` wraps all of it in ``MultiSteps``, as JAX wraps its
+  transformation in ``optax.MultiSteps``: the clip and the update act on
+  the mean of ``accumulate`` gradients, once every ``accumulate`` steps."""
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, List, Tuple
 
 import torch
 
@@ -119,3 +122,38 @@ def step(optimizer: torch.optim.Optimizer) -> None:
                 p.grad = torch.zeros_like(p)
     optimizer.step()
 
+
+
+class MultiSteps:
+    """``optax.MultiSteps(tx, every_k_schedule=k)``'s bookkeeping for the
+    torch optimizer: ``acc`` holds the running mean of the gradients since
+    the last update (optax's ``acc_grads``, by parameter name, zeros for a
+    leaf without a gradient), ``mini_step`` counts the steps into it and
+    ``gradient_step`` the updates made."""
+
+    def __init__(self, k: int, named_params: NamedParams):
+        self.k = k
+        self.mini_step = 0
+        self.gradient_step = 0
+        self.acc = {n: torch.zeros_like(p) for n, p in named_params}
+
+    @torch.no_grad()
+    def add(self, named_params: NamedParams) -> bool:
+        """Fold each leaf's gradient into ``acc`` as optax does,
+        ``acc + (g - acc) / (mini_step + 1)``.  On the k-th step the mean
+        becomes each leaf's gradient, ``acc`` starts again from zeros and
+        this returns True: the caller clips and updates.  Otherwise it
+        returns False and the weights stay as they are."""
+        named: List[Tuple[str, torch.Tensor]] = list(named_params)
+        n = self.mini_step
+        for name, p in named:
+            acc = self.acc[name]
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            acc.add_((g - acc) / (n + 1))
+        self.mini_step = (n + 1) % self.k
+        if self.mini_step:
+            return False
+        self.gradient_step += 1
+        for name, p in named:
+            p.grad, self.acc[name] = self.acc[name], torch.zeros_like(p)
+        return True

@@ -11,6 +11,7 @@ import torch
 from sat_tpu.ops.image_ops import separable_resample_mxu
 from sat_tpu_torch.config import SATConfig
 from sat_tpu_torch.data import transforms as TT
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 S = 64
 

@@ -22,6 +22,7 @@ from sat_tpu_torch.models import decoder as TD
 from sat_tpu_torch.train.checkpoints import load_model_from_checkpoint
 from test_torch_greedy import scenes
 from test_torch_kernels import _n64, make
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 K, S = 3, 20

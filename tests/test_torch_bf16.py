@@ -27,6 +27,7 @@ from sat_tpu_torch.decode.api import unpack_beam_result
 from sat_tpu_torch.decode.beam import beam_search, greedy_decode
 from sat_tpu_torch.train.checkpoints import load_model_from_checkpoint
 from test_torch_greedy import scenes
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                     "best_n64_r4_serving.ckpt")

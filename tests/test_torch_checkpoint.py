@@ -12,6 +12,7 @@ from flax import serialization
 
 from sat_tpu.train import checkpoints as jck
 from sat_tpu_torch.train import checkpoints as tck
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 CKPTS = ["golden_v1.ckpt", "best_n64_r4_serving.ckpt"]

@@ -18,6 +18,7 @@ from sat_tpu_torch.decode.beam import greedy_decode
 from sat_tpu_torch.models.jax_import import model_to_jax_tree
 from sat_tpu_torch.models.model import SATModel
 from sat_tpu_torch.train import checkpoints
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SMALL = dict(encoder_arch="shufflenet_v2_x0_5", input_size=32, encoder_dim=32,
              embed_dim=16, attention_dim=16, decoder_dim=32, deep_output=True)

@@ -26,6 +26,7 @@ from sat_tpu.data import compositional as jax_comp
 from sat_tpu.data import dataset as jax_data
 from sat_tpu.data import preprocess as jax_pre
 from sat_tpu_torch.data import compositional, dataset, images, preprocess
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # ---------------------------------------------------------------------------
 # PNG reader and writer

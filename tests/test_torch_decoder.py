@@ -14,6 +14,7 @@ from sat_tpu_torch.config import SATConfig
 from sat_tpu_torch.models import decoder as TD
 from sat_tpu_torch.models.jax_import import decoder_from_jax
 from sat_tpu_torch.ops import lstm as TL
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-5  # float32, sums of at most a few hundred terms
 

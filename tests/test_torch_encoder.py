@@ -19,6 +19,7 @@ from sat_tpu_torch.models.encoder import encoder_from_config, probe_encoder
 from sat_tpu_torch.models.jax_import import load_encoder_weights
 from sat_tpu_torch.ops import image_ops as tops
 from sat_tpu_torch.train.checkpoints import load_model_from_checkpoint
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 

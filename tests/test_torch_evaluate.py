@@ -29,6 +29,7 @@ from sat_tpu_torch.data.dataset import CaptionDataset
 from sat_tpu_torch.evalx import evaluate as TE
 from sat_tpu_torch.train.checkpoints import load_any_checkpoint
 from test_torch_serve import write_tiny_checkpoint
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CAPTION_METRICS = ("bleu", "gleu")
 N64 = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",

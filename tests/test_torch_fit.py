@@ -29,6 +29,7 @@ from sat_tpu_torch.train import checkpoints
 from sat_tpu_torch.train import logging as port_logging
 from sat_tpu_torch.train.__main__ import main
 from sat_tpu_torch.train.loop import Trainer, val_decode
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # metrics that the captions alone decide; cosine similarity and perplexity
 # also read the trained embedding and scores, held like the train metrics
@@ -209,7 +210,72 @@ def test_no_card_raises(synth_json, monkeypatch, tmp_path):
         main(["--json", synth_json, "--log_root", str(tmp_path)])
 
 
-def test_profile_dir_is_not_ported(synth_json, tmp_path):
-    cfg = config.SATConfig(**fit_kw(synth_json, profile_dir=str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="profile_dir"):
-        Trainer(cfg, log_root=str(tmp_path), device="cpu")
+def test_profile_dir_is_not_ported(synth_json, tmp_path, monkeypatch):
+    """profile_dir, ported since this test was named: fit writes one
+    torch.profiler trace, of the first epoch's training; the profiler is
+    off in validation and in the second epoch, as JAX's maybe_profile
+    window is."""
+    import json
+
+    on = []
+
+    def spy(name):
+        real = getattr(Trainer, name)
+
+        def wrapped(self, *a, **k):
+            on.append((name, torch.autograd._profiler_enabled()))
+            return real(self, *a, **k)
+        monkeypatch.setattr(Trainer, name, wrapped)
+
+    spy("train_epoch")
+    spy("validate")
+    prof = tmp_path / "prof"
+    cfg = config.SATConfig(**fit_kw(synth_json, profile_dir=str(prof),
+                                    early_stop_monitor=None))
+    Trainer(cfg, log_root=str(tmp_path), device="cpu").fit()
+    assert on == [("train_epoch", True), ("validate", False),
+                  ("train_epoch", False), ("validate", False)]
+    files = list(prof.glob("*.pt.trace.json"))
+    assert len(files) == 1
+    names = {e.get("name") for e in json.load(open(files[0]))["traceEvents"]}
+    assert {"aten::convolution", "aten::embedding_backward"} <= names
+
+
+def test_maybe_profile(tmp_path):
+    """No directory, no trace and no profiler; with one, a trace file of
+    the block's operations; an error in the block goes through."""
+    import json
+
+    from sat_tpu_torch.utils.timing import maybe_profile
+    with maybe_profile(None):
+        assert not torch.autograd._profiler_enabled()
+    with maybe_profile(str(tmp_path / "p"), "cpu"):
+        assert torch.autograd._profiler_enabled()
+        torch.ones(4).cumsum(0)
+    (trace,) = (tmp_path / "p").glob("*.pt.trace.json")
+    assert "aten::cumsum" in {e.get("name") for e in json.load(open(trace))["traceEvents"]}
+    with pytest.raises(ZeroDivisionError):
+        with maybe_profile(str(tmp_path / "q"), "cpu"):
+            1 / 0
+
+
+def test_cli_takes_the_trainer_settings(synth_json, tmp_path):
+    """The five settings the port once refused, together through the CLI:
+    bf16, microbatch 4 of 8, accumulate 2, staged data in chunks of 2 and a
+    profile of the first epoch; the checkpoint keeps them and optax's
+    MultiSteps layout."""
+    prof = tmp_path / "prof"
+    argv = ["--json", synth_json, "--batch", "8", "--epochs", "1", "--input_size", "32",
+            "--encoder_dim", "32", "--embed_dim", "16", "--attention_dim", "16",
+            "--decoder_dim", "32", "--val_interval", "1", "--val_beamk", "1",
+            "--val_max_len", "4", "--precision", "16", "--microbatch", "4",
+            "--accumulate", "2", "--device_resident_data", "--steps_per_dispatch", "2",
+            "--profile_dir", str(prof), "--log_root", str(tmp_path)]
+    metrics = main(argv, device="cpu")
+    assert np.isfinite(metrics["bleu1"])
+    cfg, tree = checkpoints.load_checkpoint(
+        os.path.join(tmp_path, "default", "version_0", "last.ckpt"))
+    assert (cfg.precision, cfg.microbatch, cfg.accumulate, cfg.device_resident_data,
+            cfg.steps_per_dispatch) == (16, 4, 2, True, 2)
+    assert int(tree["step"]) == 2 and int(tree["opt_state"]["gradient_step"]) == 1
+    assert len(list(prof.glob("*.pt.trace.json"))) == 1

@@ -18,6 +18,7 @@ from sat_tpu.train.checkpoints import load_model_from_checkpoint as jax_load
 from sat_tpu_torch.decode.api import unpack_beam_result
 from sat_tpu_torch.decode.beam import greedy_decode
 from sat_tpu_torch.train.checkpoints import load_model_from_checkpoint
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "tests", "data")

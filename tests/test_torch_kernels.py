@@ -18,6 +18,7 @@ from sat_tpu_torch.kernels import decoder_step as KS
 from sat_tpu_torch.kernels import greedy_loop as KL
 from sat_tpu_torch.models import decoder as TD
 from sat_tpu_torch.models.jax_import import decoder_from_jax
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 J = jnp.asarray
 T = torch.from_numpy

@@ -34,6 +34,7 @@ from sat_tpu_torch.models.jax_import import model_to_jax_tree
 from sat_tpu_torch.models.model import SATModel
 from sat_tpu_torch.train.checkpoints import load_any_checkpoint, save_checkpoint
 from test_torch_serve import tiny_cfg
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARCHS = ("shufflenet_v2_x0_5", "shufflenet_v2_x1_0", "shufflenet_v2_x1_5",
          "shufflenet_v2_x2_0")

@@ -23,6 +23,7 @@ from sat_tpu_torch.kernels import greedy_loop as KL
 from sat_tpu_torch.kernels.decoder_step import (FusedWeights,
                                                 pack_fused_weights, step_math)
 from sat_tpu_torch.models import decoder as TD
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 WIDTHS = [  # (E, D, A, H, V, L, B): n64, and the card tests' odd widths
     (256, 1024, 128, 512, 97, 49, 64),

@@ -9,6 +9,7 @@ import pytest
 
 from sat_tpu.evalx import metrics as jax_metrics
 from sat_tpu_torch.evalx import metrics
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 V, E = 14, 6
 

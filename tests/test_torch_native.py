@@ -34,6 +34,7 @@ from sat_tpu_torch.data.images import decode_resized, square_crop
 from sat_tpu_torch.evalx import metrics
 from test_torch_metrics import corpus, refs_of
 from test_torch_serve import BASE, assert_same_records, write_tiny_checkpoint
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.skipif(not (native.available() and jax_native.available()),
                                 reason="a C++ decode pool does not build here")

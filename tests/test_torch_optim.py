@@ -18,6 +18,7 @@ from sat_tpu_torch.config import SATConfig
 from sat_tpu_torch.train import optim as TO
 from sat_tpu_torch.train import schedules as TSch
 from sat_tpu_torch.train import tf_schedule as TTF
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SPE, EPOCHS = 3, 3            # steps per epoch, epochs: 9 updates
 SHAPES = {

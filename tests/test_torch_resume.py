@@ -42,6 +42,7 @@ from sat_tpu_torch.train import optim as TO
 from sat_tpu_torch.train.__main__ import main
 from sat_tpu_torch.train.loop import Trainer
 from sat_tpu_torch.train.opt_state import layout, load_optax_state, optax_state_dict
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 N64 = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                    "best_n64_r4_serving.ckpt")

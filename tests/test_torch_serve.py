@@ -36,6 +36,7 @@ from sat_tpu.train.checkpoints import save_checkpoint as jax_save
 from sat_tpu_torch import serve
 from sat_tpu_torch.decode import beam as TB
 from sat_tpu_torch.train import checkpoints
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-5
 BASE = ["--batch", "4", "--beamk", "3", "--max_gen_length", "6",

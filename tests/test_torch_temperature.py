@@ -24,6 +24,7 @@ from sat_tpu_torch.evalx import projector as TP
 from sat_tpu_torch.evalx import temperature as TT
 from sat_tpu_torch.train.checkpoints import load_any_checkpoint
 from test_torch_evaluate import eval_setup
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -18,6 +18,7 @@ from sat_tpu_torch.models import decoder as TD
 from sat_tpu_torch.models import sat as TS
 from sat_tpu_torch.models.jax_import import decoder_from_jax
 from sat_tpu_torch.ops import label_smoothing as TLS
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 B, R, T, L, V = 2, 5, 8, 49, 97
 METRICS = ("loss", "ce_loss", "att_loss", "accuracy")

@@ -23,6 +23,7 @@ from sat_tpu_torch.decode.beam import greedy_decode
 from sat_tpu_torch.models.jax_import import model_from_jax_tree, model_to_jax_tree
 from sat_tpu_torch.models.model import SATModel
 from sat_tpu_torch.train.loop import Trainer
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 S, R, T = 64, 5, 8
 SMALL = dict(encoder_arch="shufflenet_v2_x0_5", input_size=S, encoder_dim=32,
@@ -137,16 +138,18 @@ def test_train_mode_encoder_matches_jax(frozen_jax):
     assert not np.allclose(var, new_bs["backbone"]["bn5"]["var"], rtol=1e-3)
 
 
-def jax_steps(jt, batch, n):
+def jax_steps(jt, batch, n, finetune_after=None):
     """n steps of JAX's trainer, with its own per-step LR, encoder gate,
-    epsilon and rng (Trainer.train_epoch's loop body)."""
+    epsilon and rng (Trainer.train_epoch's loop body); ``finetune_after``
+    in place of the config's ``encoder_finetune_after`` for the gate."""
     cfg = jt.cfg
-    enc_on = cfg.encoder_finetune_after > 0 and cfg.encoder_lr > 0
+    fa = cfg.encoder_finetune_after if finetune_after is None else finetune_after
+    enc_on = fa > 0 and cfg.encoder_lr > 0
     dbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     out = []
     for step in range(n):
         lrs = jt.scheduler.current_lrs(step)
-        train_encoder = enc_on and step >= cfg.encoder_finetune_after
+        train_encoder = enc_on and step >= fa
         if not train_encoder:
             lrs = dict(lrs, encoder=0.0)
         jt.variables, jt.opt_state, m = jt._jit_train_step(
@@ -282,12 +285,3 @@ def test_trainer_needs_a_device(monkeypatch):
     cfg = SATConfig(**dict(SMALL, **vocab(), train_loader_len=4))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(cfg)
-
-
-@pytest.mark.parametrize("kw", [dict(precision=16), dict(microbatch=2),
-                                dict(accumulate=2), dict(profile_dir="prof"),
-                                dict(device_resident_data=True)])
-def test_unported_settings_raise(kw):
-    cfg = SATConfig(**dict(SMALL, **vocab(), train_loader_len=4, **kw))
-    with pytest.raises(NotImplementedError):
-        Trainer(cfg, device="cpu")

@@ -22,6 +22,7 @@ from sat_tpu_torch.models.jax_import import encoder_to_jax, model_to_jax_tree
 from sat_tpu_torch.models.model import SATModel
 from test_torch_import import torchvision_keys
 from test_torch_lightning import assert_trees_equal
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARCHS = TT.SHUFFLENET_ARCHS
 
