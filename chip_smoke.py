@@ -124,6 +124,33 @@ Phases, each of which fails the run (nonzero exit, no result line):
    straight run of (c) writes one trace of its first epoch, which must list
    CUDA kernel events.
 
+13. the ResNet configuration with the full augmentation: resnet50 at 224
+   px, ``encoder_size`` 14 (the 7 x 7 map upsampled: L 196, D 2048), the
+   default decoder widths, the header's settings with colour jitter 0.4 and
+   optical strength 0.5, encoder weights from a seeded torchvision-layout
+   state_dict written by the port's exporter (``--pretrained_weights``):
+   (a) the nine ResNet-family encoders at B = 4 with seeded weights and
+   BatchNorm statistics, eval and train mode, card against CPU (annotations
+   within 1e-3 of their scale, running statistics within rtol 1e-3); both
+   decode kernels against their plain versions at L 196, D 2048 and the
+   reference's 4096-word vocabulary (a synthetic one): the step at N 64 and
+   192, the loop at B 64, f32 and bf16, with both launch plans; (b) the
+   augment (crop, flip, jitter, the three warps each on a third of the
+   images, noise) on the card against the CPU on the CPU's draws, at f32,
+   bf16 and bf16 without the warps; (c) three SGD steps at B = 8 card
+   against CPU with the augment on the same draws (losses, decoder weights,
+   BatchNorm statistics), then 30 steps at B = 64 on phase 9's first train
+   batch, whose loss must fall by 10 %, the step's ms, busy ms by part and
+   peak memory; (d) the
+   training CLI for 2 epochs on phase 9's dataset, ``last.ckpt`` read back
+   bit for bit, ``serve`` of it on phase 10's JPEGs with the first 16
+   records equal to the CPU's, the checkpoint as a Lightning ``.ckpt`` read
+   back bit for bit; the main path of the slice counted (greedy and beam
+   captioning of the trained model); (e) encode, the step at N 192, the
+   greedy loop, greedy and beam captioning, the augment with and without
+   jitter and the warps: ms, busy ms and idle share, and both kernels'
+   bounds at these shapes (two more entries of the ``kernels`` line).
+
 ``python3 chip_smoke.py --cpu-fit`` runs phase 9 (d) on the CPU and prints
 its losses as JSON.
 
@@ -139,6 +166,7 @@ import copy
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -191,6 +219,13 @@ BF16_LOSS_TOL, BF16_PARAM_TOL, BF16_APART = 1e-3, 1e-4, 4
 # host seconds a profiler window stays open before and after what it records,
 # and the uncounted kernels (torch.cuda._sleep's) it opens with
 PROFILER_PAD_S, PROFILER_HEAD = 0.05, 256
+# phase 13: the ResNet configuration (224 px, the 7 x 7 map upsampled to
+# encoder_size 14: L 196, D 2048), its augmentation, the encoders' batch,
+# the augment check's batch, the reference's 4096-word vocabulary for the
+# decode kernels, and the CLI's epochs on phase 9's dataset
+RESNET_ARCH, RESNET_PX, RESNET_SIZE = "resnet50", 224, 14
+AUG_JITTER, AUG_OPTICAL = 0.4, 0.5
+B_ENC, AUG_B, V_REF, RESNET_EPOCHS = 4, 16, 4096, 2
 TRAIN_PARTS = ("input copy", "augment", "encoder", "decoder forward",
                "backward", "optimizer")
 
@@ -527,6 +562,52 @@ def bn_stats_err(got, ref, rtol=1e-4):
                 keep(key, err[ch].item(), name, ch, rm[ch].item(), std[ch].item(),
                      d[ch].item())
     return worst
+
+
+def check_step(label, args, rel=1e-4):
+    """The step kernels against their plain version on ``args``: each
+    output within ``rel`` of its own scale.  Returns the outputs and each
+    one's max abs error."""
+    import torch
+    from sat_tpu_torch.kernels import decoder_step as KS
+    got = KS.fused_decoder_step(*args)
+    ref = KS.fused_decoder_step_plain(*args)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g, r in zip(("t", "h", "c", "z", "alpha"), got, ref):
+        check(g.shape == r.shape and torch.isfinite(g).all(),
+              f"{label}: decoder_step {name} shape and finite values")
+        err = (g.float() - r.float()).abs().max().item()
+        tol = rel * max(1.0, r.float().abs().max().item())
+        check(err <= tol, f"{label}: decoder_step {name}: {err} > {tol}")
+        errs[name] = err
+    print(f"[check] decoder_step kernels vs plain, {label}: max abs err "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()), flush=True)
+    return got, errs
+
+
+def check_loop(label, la, bf16=False):
+    """The loop kernels against their plain version on ``la``: tokens and
+    lengths equal on >= 99 % of rows at float32 (>= 90 % at bf16, where one
+    rounding of a near tie changes a row's path), and on those rows scores
+    and attention weights within 1e-3 (1e-1 at bf16: the scores sum up to
+    S + 1 log-probs of logits reaching ~30; alphas are in [0, 1]).  Returns
+    (agreement, max abs error, the kernel's outputs)."""
+    import torch
+    from sat_tpu_torch.kernels import greedy_loop as KL
+    k = KL.greedy_loop(*la, max_gen_length=S)
+    p = KL.greedy_loop_plain(*la, max_gen_length=S)
+    torch.cuda.synchronize()
+    same = (k[0] == p[0]).all(-1) & (k[3] == p[3]) & (k[4] == p[4])
+    rate = same.float().mean().item()
+    check(rate >= (0.9 if bf16 else 0.99), f"{label}: greedy_loop tokens agree on {rate:.3f}")
+    err = max((k[2] - p[2])[same].abs().max().item(), (k[1] - p[1])[same].abs().max().item())
+    check(err <= (1e-1 if bf16 else 1e-3), f"{label}: greedy_loop scores/alphas differ by {err}")
+    check(torch.isfinite(k[1]).all() and torch.isfinite(k[2]).all(),
+          f"{label}: greedy_loop alphas and scores are finite")
+    print(f"[check] greedy_loop kernel vs plain, {label}: tokens and lengths agree on "
+          f"{rate * 100:.1f}% of rows, max abs err of scores and alphas {err:.2e}", flush=True)
+    return rate, err, k
 
 
 def train_phase(ckpt_model, imgs, dev):
@@ -1571,6 +1652,463 @@ def settings_phase(dev, js, step_f32):
     return out
 
 
+def randomise_bn(module, generator):
+    """Draw every BatchNorm's scale U(0.5, 1.5), bias N(0, 0.1), running
+    mean N(0, 0.1) and variance U(0.5, 2), in place."""
+    import torch
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.5, 1.5, generator=generator)
+                m.bias.normal_(0.0, 0.1, generator=generator)
+                m.running_mean.normal_(0.0, 0.1, generator=generator)
+                m.running_var.uniform_(0.5, 2.0, generator=generator)
+    return module
+
+
+def seeded_encoder(arch, seed, device):
+    """The port's ``arch`` encoder on ``device`` with flax's initialisers
+    and random BatchNorm statistics, drawn there from ``seed``."""
+    import torch
+    from sat_tpu_torch.config import SATConfig
+    from sat_tpu_torch.models.backbones import flax_init_
+    from sat_tpu_torch.models.encoder import encoder_from_config
+    g = torch.Generator(device).manual_seed(seed)
+    enc = encoder_from_config(SATConfig(encoder_arch=arch, input_size=RESNET_PX))
+    return randomise_bn(flax_init_(enc.to(device), g), g)
+
+
+def write_resnet_weights(path, seed, device):
+    """A seeded torchvision-layout ``RESNET_ARCH`` state_dict (random
+    BatchNorm statistics) written to ``path`` by the port's exporter, the
+    file a user passes as ``--pretrained_weights``."""
+    import torch
+    from sat_tpu_torch.models.jax_import import encoder_to_jax
+    from sat_tpu_torch.models.lightning_export import export_backbone
+    params, stats = encoder_to_jax(seeded_encoder(RESNET_ARCH, seed, device))
+    sd = export_backbone(RESNET_ARCH, params["backbone"], stats["backbone"])
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}, path)
+    return len(sd)
+
+
+def vocab_config(v):
+    """``RESNET_ARCH`` at ``RESNET_PX``, ``encoder_size`` ``RESNET_SIZE`` (D 2048)
+    with the default decoder widths and a vocabulary of v synthetic words
+    (the 4 specials last, <PAD> 0)."""
+    from sat_tpu_torch.config import SATConfig
+    stoi = {f"w{i}": i for i in range(1, v - 3)}
+    stoi.update({"<UNK>": v - 3, "<START>": v - 2, "<END>": v - 1, "<PAD>": 0})
+    return SATConfig(encoder_arch=RESNET_ARCH, input_size=RESNET_PX, encoder_size=RESNET_SIZE,
+                     encoder_dim=2048, embed_dim=256, attention_dim=128, decoder_dim=512,
+                     deep_output=True, vocab_size=v, vocab_stoi=stoi)
+
+
+def timed(fn, name=None, calls=1, warmup=3, reps=10, profiled=3, parts=()):
+    """{ms: CUDA events per call, busy_ms: the profiler's busy device time
+    per call of the kernels whose name holds ``name`` (all for None),
+    device_idle: 1 - busy / ms, and for each of ``parts`` the busy ms of
+    the kernels whose name holds ``name`` + part}."""
+    ms = cuda_ms(fn, calls=calls, warmup=warmup, reps=reps)
+    dt = device_times(fn, calls=profiled)
+    busy = busy_of(dt, name)
+    out = {"ms": ms, "busy_ms": busy,
+           "device_idle": None if busy is None else 1 - busy / ms}
+    if parts:
+        out["busy_parts_ms"] = {p: busy_of(dt, name + p) for p in parts}
+    return out
+
+
+def fmt_time(label, t, extra=""):
+    busy = "not measured" if t["busy_ms"] is None else f"{t['busy_ms']:.3f} ms"
+    idle = "not measured" if t["device_idle"] is None else f"{t['device_idle']:.1%}"
+    return f"{label}: {t['ms']:.3f} ms{extra}, busy {busy}, device idle {idle}"
+
+
+def resnet_phase(dev, js, card):
+    """Phase 13: the ResNet configuration with the full augmentation
+    (module docstring); ``js`` is phase 9's dataset."""
+    import torch
+    from sat_tpu_torch.config import args_from_config
+    from sat_tpu_torch.data import transforms as TT
+    from sat_tpu_torch.decode.beam import greedy_decode
+    from sat_tpu_torch.kernels import decoder_step as KS
+    from sat_tpu_torch.kernels import greedy_loop as KL
+    from sat_tpu_torch.models import decoder as TD
+    from sat_tpu_torch.models import lightning_export
+    from sat_tpu_torch.models.backbones import RESNET_ARCHS
+    from sat_tpu_torch.train import loop
+    from sat_tpu_torch.train.checkpoints import (load_any_checkpoint,
+                                                 load_model_from_checkpoint,
+                                                 read_checkpoint_config)
+    from sat_tpu_torch.vocab import Vocab
+
+    out, stamps = {}, {"a encoders": time.perf_counter()}
+    cpu = torch.device("cpu")
+    # (a) every ResNet-family encoder, card against CPU, eval and train mode
+    x = torch.from_numpy(scenes(B_ENC, RESNET_PX, seed=13))
+    enc_err = {}
+    for i, arch in enumerate(RESNET_ARCHS):
+        on_card = seeded_encoder(arch, 40 + i, dev)
+        on_cpu = copy.deepcopy(on_card).cpu()
+        errs = {}
+        for mode in ("eval", "train"):
+            with torch.no_grad():
+                ref = on_cpu.train(mode == "train")(x)
+                got = on_card.train(mode == "train")(x.to(dev)).cpu()
+            scale = ref.abs().max().item()
+            errs[mode] = (got - ref).abs().max().item() / max(1.0, scale)
+            check(got.shape == ref.shape == (B_ENC, (RESNET_PX // 32) ** 2, on_cpu.backbone.out_channels)
+                  and torch.isfinite(got).all(), f"resnet (a): {arch} {mode} annotations")
+        bn = bn_stats_err(on_card, on_cpu, rtol=1e-3)
+        errs["bn_var"], errs["bn_mean"] = bn["var"]["err"], bn["mean"]["err"]
+        enc_err[arch] = errs
+        # float32 convolutions summed in other orders (cuDNN's algorithms,
+        # oneDNN's) through 18 to 152 layers: ~1e-5 of the scale measured
+        check(errs["eval"] <= 1e-3 and errs["train"] <= 1e-3,
+              f"resnet (a): {arch} annotations within 1e-3 of their scale ({errs})")
+        check(bn["var"]["err"] <= 1 and bn["mean"]["err"] <= 1,
+              f"resnet (a): {arch} running statistics within rtol 1e-3 ({bn})")
+        del on_cpu, on_card
+    print(f"[resnet] (a) {len(RESNET_ARCHS)} encoders at B={B_ENC}, {RESNET_PX} px, card against "
+          "CPU, max |diff| / max(1, max |ref|) in eval and train mode, and the running "
+          "statistics' worst error over rtol 1e-3: " + "; ".join(
+              f"{a} " + ", ".join(f"{k} {v:.1e}" for k, v in e.items())
+              for a, e in enc_err.items()), flush=True)
+    out["a_encoders"] = enc_err
+
+    # (a) the decode kernels at L 196, D 2048, V 4096
+    stamps["a kernels"] = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="sat_resnet_")
+    weights = os.path.join(tmp, f"{RESNET_ARCH}_torchvision.pt")
+    n_keys = write_resnet_weights(weights, 50, dev)
+    from sat_tpu_torch.models.model import SATModel
+    vcfg = vocab_config(V_REF).replace(pretrained=True, pretrained_weights=weights)
+    ref_model = SATModel.create(vcfg, torch.Generator(dev).manual_seed(51)).eval()
+    params, vcfg = ref_model.decoder, ref_model.cfg
+    imgs192 = torch.from_numpy(scenes(B_BEAM, RESNET_PX, seed=14)).to(dev)
+    an192 = ref_model.encode(imgs192)
+    L, D = an192.shape[1:]
+    H, E, A, V = vcfg.decoder_dim, vcfg.embed_dim, vcfg.attention_dim, vcfg.vocab_size
+    check((L, D) == (RESNET_SIZE ** 2, 2048), f"resnet (a): annotations {L} x {D}")
+    plans = {"greedy loop phases": KL.loop_plan(B, L, D, A, H, E, V),
+             "decoder step kernels": KS.step_plan(B_BEAM, L, D, A, H, E)}
+    for what, plan in plans.items():
+        print(f"[design] {what}, f32 L={L} D={D} V={V}: " + "; ".join(
+            f"{k} grid {g} x {n} threads, smem {dyn} B dynamic + {st} B static"
+            for k, (g, n, dyn, st) in plan.items()), flush=True)
+        for k in ("hside", "gates", "deepout"):
+            check(plan[k][0][0] * plan[k][0][1] * plan[k][0][2] >= 64,
+                  f"resnet (a) {what}: {k} fills 64 blocks")
+    out["plans"] = plans
+    args, errs = {}, {}
+    for n in (B, B_BEAM):
+        an = an192[:n].contiguous()
+        ae = TD.attention_precompute(params, an)
+        h0, c0 = (t[0].contiguous() for t in TD.init_lstm_state(params, an, vcfg))
+        ids = torch.from_numpy(np.random.default_rng(15).integers(1, V - 3, size=n)).to(dev)
+        e = TD.embed_tokens(params, ids, vcfg).contiguous()
+        args[n] = (KS.step_weights(params, vcfg), vcfg, e, h0, c0, an, ae)
+        bf = lambda t: t.to(torch.bfloat16).contiguous()
+        args[f"{n}_bf16"] = (KS.step_weights(params, vcfg, torch.bfloat16), vcfg,
+                             *map(bf, (e, h0, c0, an, ae)))
+        errs[n] = check_step(f"L={L} D={D} N={n} f32", args[n])[1]
+        errs[f"{n}_bf16"] = check_step(f"L={L} D={D} N={n} bf16", args[f"{n}_bf16"],
+                                       rel=1e-2)[1]
+    _, _, e, h0, c0, an, ae = args[B]
+    la = (*KL.loop_weights(params, vcfg, torch.float32), vcfg, an, ae, h0, c0)
+    la16 = (*KL.loop_weights(params, vcfg, torch.bfloat16), vcfg,
+            *(t.to(torch.bfloat16).contiguous() for t in (an, ae, h0, c0)))
+    loop_rate, loop_err, kl = check_loop(f"L={L} D={D} V={V} B={B} f32", la)
+    loop_rate16, loop_err16, _ = check_loop(f"L={L} D={D} V={V} B={B} bf16", la16, bf16=True)
+    out["a_kernels"] = {"step_err": errs, "loop_agreement": loop_rate, "loop_err": loop_err,
+                        "loop_agreement_bf16": loop_rate16, "loop_err_bf16": loop_err16}
+
+    # (b) the augment, card against CPU on the CPU's draws
+    stamps["b augment"] = time.perf_counter()
+    real_draws = TT._draws
+    header = read_checkpoint_config(CKPT)
+    u8 = torch.from_numpy(np.rint(scenes(AUG_B, RESNET_PX, seed=16) * 255).astype(np.uint8))
+    aug_err = {}
+    for label, kw in (("f32", dict(precision=32)), ("bf16", dict(precision=16)),
+                      ("bf16 jitter only", dict(precision=16, aug_optical_strength=0.0))):
+        acfg = header.replace(input_size=RESNET_PX, aug_hflip=0.5, aug_color_jitter=AUG_JITTER,
+                              aug_optical_strength=AUG_OPTICAL).replace(**kw)
+        d = real_draws(torch.Generator().manual_seed(17), AUG_B, (RESNET_PX, RESNET_PX), acfg, cpu)
+        if "choice" in d:     # each warp on a third of the images
+            d["choice"] = torch.arange(AUG_B) % 3
+        TT._draws = lambda g, b, hw, c, device: {k: v.to(device) for k, v in d.items()}
+        try:
+            aug = TT.build_train_augment(acfg)
+            ref = aug(torch.Generator(), u8)
+            got = aug(torch.Generator(dev), u8.to(dev)).cpu()
+        finally:
+            TT._draws = real_draws
+        check(got.dtype == ref.dtype and got.shape == ref.shape and torch.isfinite(got).all(),
+              f"resnet (b) {label}: type, shape, finite")
+        diff = (got.float() - ref.float()).abs()
+        if got.dtype == torch.bfloat16:
+            # the card's and the CPU's bf16 operations round their float
+            # results alike, but not every intermediate: where the hue h
+            # (in [0, 1)) lands one bf16 step (2^-8) apart, the sector
+            # fraction 6 h - floor(6 h) moves 6 times that, and a channel by
+            # up to that plus a rounding at 1: 2^-5 in all
+            ulp = torch.exp2(torch.floor(torch.log2(ref.float().abs().clamp_min(1e-30))) - 7)
+            worst = diff.max().item()
+            print(f"[resnet] (b) {label}: {int((diff > 0).sum())} of {diff.numel()} values "
+                  f"differ, by up to {(diff / ulp).max().item():.0f} of their own bf16 ulps, "
+                  f"{worst:.3g} in all", flush=True)
+            check(worst <= 2 ** -5, f"resnet (b) {label}: within 2^-5 ({worst})")
+        else:
+            # the homographies differ by a float32 rounding (sin, cos, tan and
+            # the 8 x 8 solve are the card's and the CPU's own): coordinates up
+            # to 224 px move by ~1e-5 px, values by that times the image's slope
+            worst = diff.max().item()
+            check(worst <= 2e-4, f"resnet (b) {label}: within 2e-4 ({worst})")
+        aug_err[label] = {"dtype": str(got.dtype), "max_err": worst}
+    print(f"[resnet] (b) augment at B={AUG_B}, {RESNET_PX} px, jitter {AUG_JITTER}, optical "
+          f"{AUG_OPTICAL}, crop {header.aug_scale}, flip 0.5, noise {header.aug_noise_std}, "
+          f"each warp on a third of the images, card against CPU on the CPU's draws: "
+          f"{aug_err} (max abs)", flush=True)
+    out["b"] = aug_err
+
+    # (c) training steps at the slice's configuration
+    stamps["c train"] = time.perf_counter()
+    cfg13 = header.replace(precision=32, device_resident_data=False, resume=None, json=None,
+                           input_size=RESNET_PX, batch=B_TRAIN, encoder_arch=RESNET_ARCH, encoder_size=RESNET_SIZE,
+                           encoder_dim=None, pretrained=True, pretrained_weights=weights,
+                           aug_color_jitter=AUG_JITTER, aug_optical_strength=AUG_OPTICAL)
+    cfg_c = cfg13.replace(opt="sgd", momentum=0.0, decoder_tf="always", dropout=0.0,
+                          embedding_dropout=0.0, batch=B_TRAIN_CHECK)
+    vocab = Vocab(header.vocab_stoi)
+    batch_c = caption_batch(vocab, B_TRAIN_CHECK, seed=18)
+    step_draws = [real_draws(torch.Generator().manual_seed(60 + i), B_TRAIN_CHECK,
+                             (RESNET_PX, RESNET_PX), cfg_c, cpu) for i in range(3)]
+    runs, start = {}, None
+    for d in (cpu, dev):
+        fed = iter(step_draws)
+        TT._draws = lambda g, b, hw, c, device: {k: v.to(device) for k, v in next(fed).items()}
+        try:
+            tr = loop.Trainer(cfg_c, device=d)
+            if start is None:         # the CPU's initial weights, for both
+                start = copy.deepcopy(tr.model.state_dict())
+            else:
+                tr.model.load_state_dict(start)
+            runs[d.type] = (tr, torch.stack([torch.stack([m["loss"], m["ce_loss"]])
+                                             for m in (tr.train_step(batch_c)
+                                                       for _ in range(3))]).cpu())
+        finally:
+            TT._draws = real_draws
+    (gpu, m_gpu), (ctr, m_cpu) = runs[dev.type], runs["cpu"]
+    loss_rel = ((m_gpu - m_cpu).abs() / m_cpu.abs()).max().item()
+    dec_err = max(max_rel_err(gpu.model.decoder.state_dict(),
+                              ctr.model.decoder.state_dict()).values())
+    bn = bn_stats_err(gpu.model.encoder, ctr.model.encoder, rtol=1e-3)
+    print(f"[resnet] (c) 3 SGD steps at B={B_TRAIN_CHECK} with the augment on the same "
+          f"draws, card against CPU: losses {m_gpu[:, 0].tolist()}, max rel err of loss "
+          f"and CE {loss_rel:.2e}, decoder params {dec_err:.2e} of each leaf's scale, "
+          f"BatchNorm statistics' worst error over rtol 1e-3: var {bn['var']['err']:.3g}, "
+          f"mean {bn['mean']['err']:.3g}", flush=True)
+    check(loss_rel <= 1e-4, f"resnet (c): loss and CE agree within 1e-4 ({loss_rel})")
+    check(dec_err <= 1e-5, f"resnet (c): decoder parameters within 1e-5 ({dec_err})")
+    check(bn["var"]["err"] <= 1 and bn["mean"]["err"] <= 1,
+          f"resnet (c): BatchNorm statistics within rtol 1e-3 ({bn})")
+    out["c"] = {"losses": m_gpu[:, 0].tolist(), "loss_ce_rel_err": loss_rel,
+                "decoder_param_err": dec_err, "bn_var_err": bn["var"]["err"],
+                "bn_mean_err": bn["mean"]["err"]}
+    del runs, gpu, ctr
+
+    # the first batch of phase 9's train split: random words over 196
+    # locations leave the loss almost nothing to fall to (the attention
+    # term starts at its floor, (1 - T / L)^2 ~ 0.9, and the CE at ln V for
+    # words drawn uniformly), so the dataset's own captions
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr = loop.Trainer(cfg13.replace(json=js), log_root=os.path.join(tmp, "c"), device=dev)
+    tr.train_loader.set_epoch(0)
+    batch = next(iter(tr.train_loader))
+    check(len(batch["images"]) == B_TRAIN, "resnet (c): a full batch")
+    metrics = [tr.train_step(batch) for _ in range(TRAIN_STEPS)]
+    loss = torch.stack([m["loss"] for m in metrics]).cpu()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    first, last = loss[:5].mean().item(), loss[-5:].mean().item()
+    print(f"[resnet] (c) {TRAIN_STEPS} steps at B={B_TRAIN} on phase 9's first batch ({RESNET_ARCH}, "
+          f"encoder_size {RESNET_SIZE}, L {L}, D {D}, the header's settings with jitter "
+          f"{AUG_JITTER} and optical {AUG_OPTICAL}): loss {loss[0]:.4f} -> {loss[-1]:.4f}, "
+          f"mean of steps 1-5 {first:.4f}, of the last 5 {last:.4f} ({last / first:.3f}); "
+          f"peak memory {peak:.3f} GiB above the {held / 2 ** 30:.3f} GiB held", flush=True)
+    check(torch.isfinite(loss).all(), "resnet (c): finite losses")
+    check(last <= 0.9 * first, f"resnet (c): the loss falls by 10 % ({last} > 0.9 x {first})")
+    step_ms = cuda_ms(lambda: tr.train_step(batch), warmup=2, reps=5)
+    busy, parts = train_busy(tr, batch)
+    out["c"].update(loss=loss.tolist(), first5=first, last5=last, peak_memory_gib=peak,
+                    step={"ms": step_ms, "imgs_per_s": B_TRAIN / step_ms * 1e3,
+                          "busy_ms": busy, "device_idle": 1 - busy / step_ms,
+                          "busy_parts_ms": parts})
+    del tr
+
+    # (d) the training CLI, serve and the Lightning file
+    stamps["d cli"] = time.perf_counter()
+    argv = args_from_config(cfg13.replace(json=js, epochs=RESNET_EPOCHS)) + [
+        "--log_root", os.path.join(tmp, "cli")]
+    print(f"[resnet] (d) python -m sat_tpu_torch.train {' '.join(argv)}", flush=True)
+    KS.launches = 0
+    trainer, calls, window = logged_fit(argv, None)
+    torch.cuda.synchronize()
+    fit_calls = KS.launches
+    epoch_loss = [v for _, v in points(calls, "loss/train_epoch")]
+    last_ckpt = os.path.join(trainer.logdir, "last.ckpt")
+    model, _ = load_model_from_checkpoint(last_ckpt, device=dev)
+    sd, back = trainer.model.state_dict(), model.state_dict()
+    exact = sd.keys() == back.keys() and all(torch.equal(sd[k], back[k]) for k in sd)
+    steps = FIT_TRAIN // B_TRAIN * RESNET_EPOCHS
+    print(f"[resnet] (d) {RESNET_EPOCHS} epochs: epoch mean losses {epoch_loss}, val "
+          f"BLEU-4 {[v for _, v in points(calls, 'bleu4/val_epoch')]}, {fit_calls} "
+          f"step-kernel calls in the validations, step {trainer.global_step}; last.ckpt "
+          f"({os.path.getsize(last_ckpt) / 2 ** 20:.1f} MiB) reads back bit for bit: "
+          f"{exact}", flush=True)
+    check(all(np.isfinite(v) for v in epoch_loss) and len(epoch_loss) == RESNET_EPOCHS,
+          "resnet (d): finite epoch losses")
+    check(trainer.global_step == steps, f"resnet (d): {trainer.global_step} steps")
+    check(fit_calls > 0, "resnet (d): the validations ran the step kernels")
+    check(exact, "resnet (d): last.ckpt gives every parameter and buffer bit for bit")
+    check(model.grid_hw == (RESNET_SIZE, RESNET_SIZE), f"resnet (d): grid {model.grid_hw}")
+    out["d"] = {"argv": argv, "epoch_loss": epoch_loss, "step_calls": fit_calls,
+                "profile_epoch_2": window,
+                "epochs": [{"wall_s": t["seconds"], "train_s": t["train"]["seconds"]}
+                           for t in trainer.epoch_timings]}
+    del trainer
+
+    img_dir = os.path.join(tmp, "images")
+    os.makedirs(img_dir)
+    write_jpegs(img_dir, SERVE_N, seed=10)        # phase 10's files
+    from sat_tpu_torch import serve
+    paths = serve.gather_images([img_dir])
+    base = ["--checkpoint", last_ckpt, "--images", img_dir, "--batch", str(SERVE_BATCH),
+            "--beamk", str(K_BEAM), "--rescore_method", "LN", "--precision", "32"]
+    recs, calls_s, wall_s, tm = serve_run(base, os.path.join(tmp, "serve.jsonl"))
+    cpu_recs, _, _, cpu_tm = serve_run(
+        ["--checkpoint", last_ckpt, "--images", *paths[:16], "--batch", "16"] + base[6:],
+        os.path.join(tmp, "serve_cpu.jsonl"), device="cpu")
+    same16 = sum(g["caption"] == c["caption"] for g, c in zip(recs[:16], cpu_recs))
+    gaps = [max(abs(g["score"] - c["score"]), abs(g["perplexity"] - c["perplexity"]))
+            for g, c in zip(recs[:16], cpu_recs)]
+    print(f"[resnet] (d) serve of last.ckpt on phase 10's {len(paths)} files ({tm['route']}): "
+          f"{len(recs)} records, {calls_s} step-kernel calls, {wall_s:.2f} s; first 16 "
+          f"against the CPU ({cpu_tm['route']}): {same16}/16 captions equal, largest score "
+          f"or perplexity gap {max(gaps):.2e}; e.g. {recs[0].get('caption')!r}", flush=True)
+    check(len(recs) == SERVE_N + 1 and sum("error" in r for r in recs) == 1,
+          "resnet (d): serve gives a record per file, one error")
+    check(calls_s > 0, "resnet (d): serve ran the step kernels")
+    check(cpu_tm["route"] == tm["route"] and same16 == 16 and max(gaps) <= 1e-4,
+          f"resnet (d): {same16}/16 captions equal to the CPU's, gap {max(gaps)}")
+    lt = os.path.join(tmp, "resnet_lightning.ckpt")
+    lightning_export.main(["--input", last_ckpt, "--output", lt])
+    a_sd, b_sd = load_any_checkpoint(last_ckpt).state_dict(), load_any_checkpoint(lt).state_dict()
+    lt_exact = a_sd.keys() == b_sd.keys() and all(torch.equal(a_sd[k], b_sd[k]) for k in a_sd)
+    print(f"[resnet] (d) the Lightning .ckpt ({os.path.getsize(lt) / 2 ** 20:.1f} MiB, "
+          f"{n_keys} backbone keys in the torchvision file it started from) reads back "
+          f"bit for bit: {lt_exact}", flush=True)
+    check(lt_exact, "resnet (d): the Lightning file gives every leaf bit for bit")
+    out["d"].update(serve_records=len(recs), serve_step_calls=calls_s,
+                    serve_cpu_equal_of_16=same16, serve_cpu_max_gap=max(gaps),
+                    lightning_bit_for_bit=lt_exact)
+
+    # the slice's main path, counted: greedy and beam captioning of the
+    # trained model (encode, then the loop kernel; encode, then the step
+    # kernels at B k rows)
+    stamps["main path"] = time.perf_counter()
+    imgs = imgs192[:B]
+    KS.launches = KL.launches = 0
+    res = greedy_decode(model.decoder, model.cfg, model.encode(imgs), max_gen_length=S)
+    caps = model.caption(imgs, beamk=K_BEAM, max_gen_length=S, rescore_method="LN")[0]
+    torch.cuda.synchronize()
+    launches = {"decoder_step": KS.launches, "greedy_loop": KL.launches}
+    print(f"[resnet] main path launches (greedy, then beam captioning of {B} images): "
+          f"{launches}", flush=True)
+    check(launches == {"decoder_step": S + 1, "greedy_loop": 1},
+          "resnet: the main path ran the loop kernel once and the step kernels per step")
+    check(res.tokens.shape == (B, 1, S + 2) and len(caps) == B, "resnet: result shapes")
+    out["launches"] = launches
+
+    # (e) times
+    stamps["e times"] = time.perf_counter()
+    aug_t = {}
+    u64 = torch.from_numpy(np.rint(scenes(B_TRAIN, RESNET_PX, seed=20) * 255).astype(np.uint8)).to(dev)
+    for label, c in (("crop + noise", header.replace(precision=32, input_size=RESNET_PX)),
+                     ("crop + noise + jitter + optical", cfg13)):
+        aug = TT.build_train_augment(c)
+        g = torch.Generator(dev).manual_seed(0)
+        aug_t[label] = timed(lambda: aug(g, u64))
+    times = {
+        "encode": timed(lambda: model.encode(imgs)),
+        "decoder_step_192": timed(lambda: KS.fused_decoder_step(*args[B_BEAM]),
+                                  "decoder_step_", calls=20, profiled=10,
+                                  parts=KS.KERNELS),
+        "decoder_step_192_plain": timed(lambda: KS.fused_decoder_step_plain(*args[B_BEAM]),
+                                        calls=20, profiled=10),
+        "greedy_loop": timed(lambda: KL.greedy_loop(*la, max_gen_length=S), "greedy_loop_",
+                             parts=KL.PHASES),
+        "greedy_loop_plain": timed(lambda: KL.greedy_loop_plain(*la, max_gen_length=S)),
+        "greedy_captioning": timed(lambda: greedy_decode(
+            model.decoder, model.cfg, model.encode(imgs), max_gen_length=S)),
+        "beam_captioning": timed(lambda: model.caption(
+            imgs, beamk=K_BEAM, max_gen_length=S, rescore_method="LN"), reps=5),
+    }
+    times.update({f"augment {k}": v for k, v in aug_t.items()})
+    for k, t in times.items():
+        extra = f" per batch of {B}, {B / t['ms'] * 1e3:.0f} imgs/s" if "captioning" in k \
+            or k == "encode" else ""
+        parts = t.get("busy_parts_ms")
+        tail = "" if not parts else "; busy by kernel: " + ", ".join(
+            f"{p} {'not measured' if v is None else f'{v * 1e3:.1f} us'}"
+            for p, v in parts.items())
+        print(f"[time] resnet ({card}) " + fmt_time(k, t, extra) + tail, flush=True)
+    st = out["c"]["step"]
+    print(f"[time] resnet ({card}) train step at B={B_TRAIN}: {st['ms']:.3f} ms, "
+          f"{st['imgs_per_s']:.0f} imgs/s, busy {st['busy_ms']:.3f} ms, device idle "
+          f"{st['device_idle']:.1%}, peak memory {out['c']['peak_memory_gib']:.3f} GiB; "
+          "busy by part: " + ", ".join(f"{k} {v:.3f} ms" for k, v in st["busy_parts_ms"].items()),
+          flush=True)
+    # bounds: inputs read once, outputs written once; this run's operations
+    a192 = args[B_BEAM]
+    step_out = KS.fused_decoder_step(*a192)
+    step_bound, step_by = bound(nbytes(*a192[0], *a192[2:], *step_out),
+                                B_BEAM * step_flops(L, D, A, H, E), "float32")
+    steps_run = torch.where(kl[4], kl[3] + 1, S + 1).sum().item()
+    loop_bound, loop_by = bound(nbytes(an, ae, h0, c0, *la[0], *la[1:4], *kl),
+                                steps_run * (step_flops(L, D, A, H, E) + 2 * E * V), "float32")
+    out["e"] = dict(times, step_bound_ms=step_bound, step_bound_by=step_by,
+                    loop_bound_ms=loop_bound, loop_bound_by=loop_by,
+                    loop_rows_steps=steps_run)
+    print(f"[time] resnet bounds: step at N={B_BEAM} {step_bound:.4f} ms ({step_by}); "
+          f"greedy loop at B={B}, V={V}, {steps_run} row-steps {loop_bound:.4f} ms "
+          f"({loop_by})", flush=True)
+    kernels = [
+        {"name": f"decoder_step_L{L}_D{D}", "route": "cuda",
+         "source": "sat_tpu_torch/csrc/decoder_step.cu",
+         "replaces": "sat_tpu/kernels/decoder_step.py:72",
+         "launches": launches["decoder_step"], "rows": B_BEAM,
+         "max_abs_err": max(errs[B_BEAM].values()),
+         "ms": times["decoder_step_192"]["ms"],
+         "plain_ms": times["decoder_step_192_plain"]["ms"],
+         "bound_ms": step_bound, "bound_by": step_by, "library_ms": None},
+        {"name": f"greedy_loop_L{L}_D{D}_V{V}", "route": "cuda",
+         "source": "sat_tpu_torch/csrc/greedy_loop.cu",
+         "replaces": "sat_tpu/kernels/greedy_loop.py:42",
+         "launches": launches["greedy_loop"], "rows": B, "max_abs_err": loop_err,
+         "ms": times["greedy_loop"]["ms"], "plain_ms": times["greedy_loop_plain"]["ms"],
+         "bound_ms": loop_bound, "bound_by": loop_by, "library_ms": None},
+    ]
+    out["kernels"] = kernels
+    shutil.rmtree(tmp, ignore_errors=True)
+    stamps["end"] = time.perf_counter()
+    names = list(stamps)
+    out["seconds"] = {a: stamps[b] - stamps[a] for a, b in zip(names, names[1:])}
+    print("[time] seconds per part of phase 13: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["seconds"].items()), flush=True)
+    return out
+
+
 def cpu_fit():
     """Phase 9 (d) on the CPU (``--cpu-fit``): the same dataset and CLI
     run, printing the epoch-3 / epoch-1 loss ratio."""
@@ -1660,25 +2198,6 @@ def main():
         1, cfg.vocab_size, size=B)).to(dev)
     e = TD.embed_tokens(params, ids, cfg).contiguous()
 
-    def check_step(label, args, rel=1e-4):
-        """The step kernels against their plain version on ``args``: each
-        output within ``rel`` of its own scale.  Returns the outputs and
-        each one's max abs error."""
-        got = KS.fused_decoder_step(*args)
-        ref = KS.fused_decoder_step_plain(*args)
-        torch.cuda.synchronize()
-        errs = {}
-        for name, g, r in zip(("t", "h", "c", "z", "alpha"), got, ref):
-            check(g.shape == r.shape and torch.isfinite(g).all(),
-                  f"{label}: decoder_step {name} shape and finite values")
-            err = (g.float() - r.float()).abs().max().item()
-            tol = rel * max(1.0, r.float().abs().max().item())
-            check(err <= tol, f"{label}: decoder_step {name}: {err} > {tol}")
-            errs[name] = err
-        print(f"[check] decoder_step kernels vs plain, {label}: max abs err "
-              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()), flush=True)
-        return got, errs
-
     # float32 sums taken in another order: ~1e-6 of the operands' scale;
     # 1e-4 of each output's own scale leaves two orders of margin (z
     # carries the annotations' scale, ~200 at n64)
@@ -1692,21 +2211,7 @@ def main():
 
     lw = KL.loop_weights(params, cfg, torch.float32)
     loop_args = (*lw, cfg, annots, att_enc, h0, c0)
-    kl = KL.greedy_loop(*loop_args, max_gen_length=S)
-    pl = KL.greedy_loop_plain(*loop_args, max_gen_length=S)
-    torch.cuda.synchronize()
-    same = (kl[0] == pl[0]).all(-1) & (kl[3] == pl[3]) & (kl[4] == pl[4])
-    rate = same.float().mean().item()
-    check(rate >= 0.99, f"greedy_loop tokens agree on {rate:.3f} of rows")
-    loop_err = max((kl[2] - pl[2])[same].abs().max().item(),
-                   (kl[1] - pl[1])[same].abs().max().item())
-    # scores sum up to S+1 log-probs of logits reaching ~30; alphas are in [0, 1]
-    check(loop_err <= 1e-3, f"greedy_loop scores/alphas differ by {loop_err}")
-    check(torch.isfinite(kl[1]).all() and torch.isfinite(kl[2]).all(),
-          "greedy_loop alphas and scores are finite")
-    print(f"[check] greedy_loop kernel vs plain, f32 B={B} S={S}: tokens and "
-          f"lengths agree on {rate * 100:.1f}% of rows, max abs err of scores "
-          f"and alphas {loop_err:.2e}", flush=True)
+    rate, loop_err, kl = check_loop(f"f32 B={B} S={S}", loop_args)
 
     # other shapes: several 64-row tiles (B_BEAM, B_WIDE), and the golden
     # checkpoint's narrow widths (H 12, A 8, E 8, V 24, L 1) for the ragged
@@ -1724,13 +2229,8 @@ def main():
         got_n, err_n = check_step(label, args)
         if n == B_BEAM and m is model:
             beam_step_args, beam_step_out, beam_step_err = args, got_n, err_n
-        la = (*KL.loop_weights(m.decoder, m.cfg, torch.float32), m.cfg, an, ae, hh, cc)
-        k2, p2 = KL.greedy_loop(*la, max_gen_length=S), KL.greedy_loop_plain(*la, max_gen_length=S)
-        ok = (k2[0] == p2[0]).all(-1) & (k2[3] == p2[3])
-        check(ok.float().mean().item() >= 0.99, f"{label}: greedy_loop tokens")
-        check((k2[2] - p2[2])[ok].abs().max().item() <= 1e-3, f"{label}: greedy_loop scores")
-        print(f"[check] {label}: both kernels agree with their plain versions",
-              flush=True)
+        check_loop(label, (*KL.loop_weights(m.decoder, m.cfg, torch.float32), m.cfg,
+                           an, ae, hh, cc))
 
     # -- 4. greedy path -------------------------------------------------------------
     stamps["greedy"] = time.perf_counter()
@@ -1983,6 +2483,10 @@ def main():
                                             dict(report["train"]["step"],
                                                  peak_memory_gib=report["train"]["b"][
                                                      "peak_memory_gib"]))
+        # -- 13. the ResNet configuration with the full augmentation --------------------
+        stamps["resnet"] = time.perf_counter()
+        report["resnet"] = resnet_phase(dev, report["fit"]["json"], card)
+        kernels += report["resnet"]["kernels"]
     kernels[0].update(launches_serve=report["serve"]["a"]["step_calls"],
                       launches_evaluate=report["serve"]["d"]["step_calls"],
                       launches_resumed_fit=report["resume"]["b_step_calls"])

@@ -1,11 +1,16 @@
-"""ShuffleNetV2 backbones of ``sat_tpu/models/backbones.py`` as torch modules.
+"""The ResNet family and ShuffleNetV2 backbones of
+``sat_tpu/models/backbones.py`` as torch modules.
 
 Submodule names follow the JAX parameter paths (``conv1``, ``bn1``,
-``stage2_0.b1_dw``, ``conv5``, ...) so ``models/jax_import.py`` can map the
-flax weights by name.  The modules run NCHW, PyTorch's layout; the encoder
-converts at its boundary.  BatchNorm follows flax's (``BatchNorm`` below),
-in eval and in train mode; the other 22 encoders of
-``config.ENCODER_ARCHS`` come later.
+``layer2_0.conv3``, ``layer2_0.down_bn``, ``stage2_0.b1_dw``, ``conv5``,
+...) so ``models/jax_import.py`` can map the flax weights by name.  The
+modules run NCHW, PyTorch's layout; the encoder converts at its boundary.
+BatchNorm follows flax's (``BatchNorm`` below), in eval and in train mode.
+``BACKBONES`` holds the 13 archs ported so far: resnet18/34/50/101/152,
+resnext50_32x4d, resnext101_32x8d, wide_resnet50_2, wide_resnet101_2 and
+the four shufflenet_v2_*; the other encoders of ``config.ENCODER_ARCHS``
+(DenseNet, MobileNet, MNASNet, SqueezeNet) raise ``unported`` (``ROADMAP.md``
+§1 item 7).
 
 The JAX package folds the input normalisation into ``conv1``
 (``FoldedStemConv``) and permutes channels to avoid TPU relayouts
@@ -14,7 +19,7 @@ same math as normalise -> conv1, which is what runs here."""
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -141,7 +146,114 @@ _STAGES: Dict[str, Sequence[int]] = {
     "shufflenet_v2_x2_0": (244, 488, 976, 2048),
 }
 
-BACKBONES = {name: (lambda st=st: ShuffleNetV2(st)) for name, st in _STAGES.items()}
+class BasicBlock(nn.Module):
+    """Two 3 x 3 convs; a 1 x 1 projection of the identity where the stride
+    or the width changes."""
+
+    def __init__(self, cin: int, planes: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = _conv(cin, planes, 3, stride)
+        self.bn1 = _bn(planes)
+        self.conv2 = _conv(planes, planes, 3)
+        self.bn2 = _bn(planes)
+        self.out_channels = planes
+        if stride != 1 or cin != planes:
+            self.down_conv = _conv(cin, planes, 1, stride)
+            self.down_bn = _bn(planes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        identity = self.down_bn(self.down_conv(x)) if hasattr(self, "down_conv") else x
+        return F.relu(y + identity)
+
+
+class Bottleneck(nn.Module):
+    """1 x 1 -> 3 x 3 (strided, grouped) -> 1 x 1 to 4 x planes, with
+    width = int(planes * base_width / 64) * groups (ResNeXt, Wide ResNet)."""
+
+    def __init__(self, cin: int, planes: int, stride: int = 1, groups: int = 1,
+                 base_width: int = 64):
+        super().__init__()
+        width = int(planes * (base_width / 64.0)) * groups
+        out = planes * 4
+        self.conv1 = _conv(cin, width, 1)
+        self.bn1 = _bn(width)
+        self.conv2 = _conv(width, width, 3, stride, groups=groups)
+        self.bn2 = _bn(width)
+        self.conv3 = _conv(width, out, 1)
+        self.bn3 = _bn(out)
+        self.out_channels = out
+        if stride != 1 or cin != out:
+            self.down_conv = _conv(cin, out, 1, stride)
+            self.down_bn = _bn(out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        identity = self.down_bn(self.down_conv(x)) if hasattr(self, "down_conv") else x
+        return F.relu(y + identity)
+
+
+class ResNet(nn.Module):
+    """Stem (7 x 7 / 2 conv, padding 3, BN, ReLU, 3 x 3 / 2 max-pool with
+    padding 1), then four stages of ``stage_sizes`` blocks at 64, 128, 256
+    and 512 planes, the first block of stages 2-4 at stride 2; blocks are
+    ``layer{i}_{j}``.  JAX's stem folds the normalisation into conv1
+    (``FoldedStemConv``), the same math, exact at the borders."""
+
+    def __init__(self, stage_sizes: Sequence[int], bottleneck: bool = False,
+                 groups: int = 1, base_width: int = 64):
+        super().__init__()
+        self.conv1 = _conv(3, 64, 7, 2)
+        self.bn1 = _bn(64)
+        cin = 64
+        for i, n_blocks in enumerate(stage_sizes):
+            for j in range(n_blocks):
+                stride = 2 if (i > 0 and j == 0) else 1
+                planes = 64 * 2 ** i
+                blk = (Bottleneck(cin, planes, stride, groups, base_width)
+                       if bottleneck else BasicBlock(cin, planes, stride))
+                self.add_module(f"layer{i + 1}_{j}", blk)
+                cin = blk.out_channels
+        self.block_names = [n for n, _ in self.named_children()
+                            if n.startswith("layer")]
+        self.out_channels = cin
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, 3, H, W), already normalised -> (B, C, H/32, W/32)."""
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, 2, padding=1)
+        for name in self.block_names:
+            x = getattr(self, name)(x)
+        return x
+
+
+# (stage sizes, bottleneck, groups, base width) of JAX's BACKBONES registry
+RESNET_ARCHS: Dict[str, Tuple[Sequence[int], bool, int, int]] = {
+    "resnet18": ((2, 2, 2, 2), False, 1, 64),
+    "resnet34": ((3, 4, 6, 3), False, 1, 64),
+    "resnet50": ((3, 4, 6, 3), True, 1, 64),
+    "resnet101": ((3, 4, 23, 3), True, 1, 64),
+    "resnet152": ((3, 8, 36, 3), True, 1, 64),
+    "resnext50_32x4d": ((3, 4, 6, 3), True, 32, 4),
+    "resnext101_32x8d": ((3, 4, 23, 3), True, 32, 8),
+    "wide_resnet50_2": ((3, 4, 6, 3), True, 1, 128),
+    "wide_resnet101_2": ((3, 4, 23, 3), True, 1, 128),
+}
+
+BACKBONES = {name: (lambda a=a: ResNet(*a)) for name, a in RESNET_ARCHS.items()}
+BACKBONES.update({name: (lambda st=st: ShuffleNetV2(st))
+                  for name, st in _STAGES.items()})
+
+
+def unported(arch: str) -> NotImplementedError:
+    """The error of an encoder of ``config.ENCODER_ARCHS`` not ported yet."""
+    return NotImplementedError(
+        f"{arch}: the port runs the ResNet family (resnet*, resnext*, "
+        "wide_resnet*) and shufflenet_v2_*; the other encoders and their "
+        "weight converters are ROADMAP.md §1 item 7")
 
 
 @torch.no_grad()

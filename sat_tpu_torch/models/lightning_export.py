@@ -27,7 +27,7 @@ import torch
 
 from ..config import SATConfig
 from .lightning_import import _CHILD_MAPS, _family
-from .torch_import import SHUFFLENET_ARCHS, unported
+from .torch_import import _RESNET, SHUFFLENET_ARCHS, unported
 
 
 def _host(tree: Any) -> Any:
@@ -71,6 +71,21 @@ class _Inv:
                     self.stats.get(flax_name))
 
 
+def _export_resnet(t: _Inv, stage_sizes, bottleneck: bool) -> None:
+    t.conv("conv1", "conv1")
+    t.bn("bn1", "bn1")
+    n_convs = 3 if bottleneck else 2
+    for i, n_blocks in enumerate(stage_sizes):
+        for j in range(n_blocks):
+            tp, blk = f"layer{i+1}.{j}", t.sub(f"layer{i+1}_{j}")
+            for k in range(1, n_convs + 1):
+                blk.conv(f"conv{k}", f"{tp}.conv{k}")
+                blk.bn(f"bn{k}", f"{tp}.bn{k}")
+            if "down_conv" in blk.params:
+                blk.conv("down_conv", f"{tp}.downsample.0")
+                blk.bn("down_bn", f"{tp}.downsample.1")
+
+
 def _export_shufflenet(t: _Inv) -> None:
     t.conv("conv1", "conv1.0")
     t.bn("bn1", "conv1.1")
@@ -97,10 +112,13 @@ def export_backbone(arch: str, params: Dict, stats: Optional[Dict]
                     ) -> Dict[str, np.ndarray]:
     """Flax backbone (params, batch_stats) -> torchvision-keyed state_dict;
     the exact inverse of ``torch_import.convert_backbone``."""
-    if arch not in SHUFFLENET_ARCHS:
-        raise unported(arch)
     sd: Dict[str, np.ndarray] = {}
-    _export_shufflenet(_Inv(sd, params, stats))
+    if arch in _RESNET:
+        _export_resnet(_Inv(sd, params, stats), *_RESNET[arch])
+    elif arch in SHUFFLENET_ARCHS:
+        _export_shufflenet(_Inv(sd, params, stats))
+    else:
+        raise unported(arch)
     return sd
 
 

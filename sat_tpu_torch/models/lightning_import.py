@@ -18,8 +18,9 @@ Decoder mapping (torch Linear stores (out, in); the tree stores (in, out)):
 Encoder mapping: the reference encoder is ``nn.Sequential(Normalize,
 *backbone_children[, proj_conv])`` (model.py:59-62); the ``encoder.<idx>.*``
 keys go back to torchvision's key layout and through
-``models/torch_import.py``'s converter (the four ``shufflenet_v2_*`` tables;
-the other encoders raise, ``ROADMAP.md`` §1 item 7).
+``models/torch_import.py``'s converters: the nine ResNet-family tables
+(``resnet`` children 1, 2, 5-8 after Normalize) and the four
+``shufflenet_v2_*`` ones; the other encoders raise, ``ROADMAP.md`` §1 item 7.
 
     python -m sat_tpu_torch.models.lightning_import --input ref.ckpt \\
         --output sat.ckpt

@@ -1,5 +1,7 @@
 """Offline torchvision weight import, ported from
-``sat_tpu/models/torch_import.py`` for the four ``shufflenet_v2_*`` tables.
+``sat_tpu/models/torch_import.py`` for the nine ResNet-family tables
+(resnet18/34/50/101/152, resnext50_32x4d, resnext101_32x8d,
+wide_resnet50_2, wide_resnet101_2) and the four ``shufflenet_v2_*`` tables.
 
 A saved torchvision ``state_dict`` (``.pt``/``.pth`` or an ``.npz`` with the
 same keys) is converted, as in the JAX package, into the flax-layout tree of
@@ -10,14 +12,17 @@ kernels ``HWIO``, BatchNorm ``scale``/``bias`` and running ``mean``/``var``.
 port's modules: the conversion is the JAX package's, the loading is the one
 every checkpoint takes.
 
-The other encoders' converters come with those encoders (``ROADMAP.md`` §1
-item 7); ``convert_backbone`` raises ``NotImplementedError`` for them."""
+The other encoders' converters (DenseNet, MobileNet, MNASNet, SqueezeNet)
+come with those encoders (``ROADMAP.md`` §1 item 7); ``convert_backbone``
+raises ``NotImplementedError`` for them."""
 
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
 import numpy as np
+
+from .backbones import RESNET_ARCHS, unported
 
 SHUFFLENET_ARCHS = ("shufflenet_v2_x0_5", "shufflenet_v2_x1_0",
                     "shufflenet_v2_x1_5", "shufflenet_v2_x2_0")
@@ -63,6 +68,33 @@ class _Tree:
         self.stats[flax_name] = s
 
 
+# (stage sizes, bottleneck) of each table: groups and width change shapes only
+_RESNET = {arch: (stages, bottleneck)
+           for arch, (stages, bottleneck, _, _) in RESNET_ARCHS.items()}
+
+
+def convert_resnet(sd: Dict[str, Any], stage_sizes, bottleneck: bool
+                   ) -> Tuple[Dict, Dict]:
+    t = _Tree()
+    t.conv("conv1", sd, "conv1")
+    t.bn("bn1", sd, "bn1")
+    for i, n_blocks in enumerate(stage_sizes):
+        for j in range(n_blocks):
+            tp = f"layer{i+1}.{j}"
+            fp = f"layer{i+1}_{j}"
+            blk = _Tree()
+            n_convs = 3 if bottleneck else 2
+            for k in range(1, n_convs + 1):
+                blk.conv(f"conv{k}", sd, f"{tp}.conv{k}")
+                blk.bn(f"bn{k}", sd, f"{tp}.bn{k}")
+            if f"{tp}.downsample.0.weight" in sd:
+                blk.conv("down_conv", sd, f"{tp}.downsample.0")
+                blk.bn("down_bn", sd, f"{tp}.downsample.1")
+            t.params[fp] = blk.params
+            t.stats[fp] = blk.stats
+    return t.params, t.stats
+
+
 def convert_shufflenet(sd: Dict[str, Any]) -> Tuple[Dict, Dict]:
     t = _Tree()
     t.conv("conv1", sd, "conv1.0")
@@ -90,20 +122,16 @@ def convert_shufflenet(sd: Dict[str, Any]) -> Tuple[Dict, Dict]:
     return t.params, t.stats
 
 
-def unported(arch: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{arch}: only the shufflenet_v2_* encoders are ported; the other "
-        "encoders and their weight converters are ROADMAP.md §1 item 7")
-
-
 def convert_backbone(arch: str, state_dict: Dict[str, Any]) -> Tuple[Dict, Dict]:
     """torchvision state_dict -> (backbone params, backbone batch_stats).
     Classifier-head keys are ignored (the reference strips them,
     model.py:29-41)."""
-    if arch not in SHUFFLENET_ARCHS:
+    if arch not in _RESNET and arch not in SHUFFLENET_ARCHS:
         raise unported(arch)
     sd = {k: v for k, v in state_dict.items()
           if not k.startswith(("fc.", "classifier."))}
+    if arch in _RESNET:
+        return convert_resnet(sd, *_RESNET[arch])
     return convert_shufflenet(sd)
 
 

@@ -134,8 +134,8 @@ def test_load_any_checkpoint_reads_both_formats(lightning, tmp_path):
 
 
 def test_other_encoders_raise():
-    """A resnet18 checkpoint: the port's converters stop with item 7."""
-    cfg = SATConfig(**tiny_cfg("resnet18").to_dict())
+    """A densenet121 checkpoint: the port's converters stop with item 7."""
+    cfg = SATConfig(**tiny_cfg("densenet121").to_dict())
     ckpt = {"state_dict": {"encoder.1.weight": np.zeros((8, 3, 7, 7), np.float32)},
             "hyper_parameters": cfg.to_dict()}
     with pytest.raises(NotImplementedError, match="item 7"):
@@ -144,7 +144,7 @@ def test_other_encoders_raise():
     with pytest.raises(NotImplementedError, match="item 7"):
         TE.build_lightning_checkpoint(cfg, tree)
     with pytest.raises(NotImplementedError, match="item 7"):
-        torch_import.convert_backbone("resnet18", {})
+        torch_import.convert_backbone("densenet121", {})
 
 
 def test_no_card_raises(lightning):
