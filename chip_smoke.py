@@ -151,6 +151,29 @@ Phases, each of which fails the run (nonzero exit, no result line):
    jitter and the warps: ms, busy ms and idle share, and both kernels'
    bounds at these shapes (two more entries of the ``kernels`` line).
 
+14. ``BASELINE.json``'s first configuration: mobilenet_v3_small at 224 px,
+   its native 7 x 7 map (L 49, D 576, no ``proj``), the default decoder
+   widths, the header's settings at f32 with the encoder finetuned from
+   step 1, encoder weights from a seeded torchvision-layout state_dict
+   written by the port's exporter (``--pretrained_weights``): (a) the seven
+   inverted-residual encoders (mobilenet_v2, mobilenet_v3_large/small,
+   mnasnet0_5/0_75/1_0/1_3) at B = 4, eval and train mode, card against
+   CPU as in 13 (a), and mobilenet_v3_small in bf16 (the model cast as
+   ``serve`` casts it), card against CPU within 4 bf16 ulps of the largest
+   value (the gap to the CPU's f32 printed); both decode kernels against their plain
+   versions at L 49, D 576 and V 4096, the step at N 64 and 192 and the
+   loop at B 64, f32 and bf16, and the step at N 192 at D 960
+   (mobilenet_v3_large) and 1280 (mobilenet_v2), where the last 256-wide
+   slice of ``attend`` is partial; (b) three SGD steps at B = 8 card
+   against CPU (losses, decoder weights, BatchNorm statistics, and the
+   encoder's update held against the CPU's float64 steps), then 30 steps at B = 64 on phase 9's first train batch, whose loss must
+   fall by 10 %, the step's ms, busy ms by part and peak memory; (c) as
+   13 (d): the CLI for 2 epochs, ``last.ckpt`` bit for bit, ``serve`` of
+   it against the CPU, the Lightning ``.ckpt`` bit for bit, and the main
+   path counted; (d) encode, the step at N 192, the greedy loop, greedy
+   and beam captioning: ms, busy ms and idle share, and both kernels'
+   bounds (two more entries of the ``kernels`` line).
+
 ``python3 chip_smoke.py --cpu-fit`` runs phase 9 (d) on the CPU and prints
 its losses as JSON.
 
@@ -226,6 +249,13 @@ PROFILER_PAD_S, PROFILER_HEAD = 0.05, 256
 RESNET_ARCH, RESNET_PX, RESNET_SIZE = "resnet50", 224, 14
 AUG_JITTER, AUG_OPTICAL = 0.4, 0.5
 B_ENC, AUG_B, V_REF, RESNET_EPOCHS = 4, 16, 4096, 2
+# phase 14: BASELINE.json's first configuration (mobilenet_v3_small at 224
+# px, its native 7 x 7 map: L 49, D 576), the seven inverted-residual
+# encoders, the step kernels' other widths (D 960, 1280) and the CLI's epochs
+MOBILE_ARCH, MOBILE_PX, MOBILE_D, MOBILE_EPOCHS = "mobilenet_v3_small", 224, 576, 2
+MOBILE_ARCHS = ("mobilenet_v2", "mobilenet_v3_large", "mobilenet_v3_small", "mnasnet0_5",
+                "mnasnet0_75", "mnasnet1_0", "mnasnet1_3")
+MOBILE_WIDE = (("mobilenet_v3_large", 960), ("mobilenet_v2", 1280))
 TRAIN_PARTS = ("input copy", "augment", "encoder", "decoder forward",
                "backward", "optimizer")
 
@@ -1666,40 +1696,40 @@ def randomise_bn(module, generator):
     return module
 
 
-def seeded_encoder(arch, seed, device):
-    """The port's ``arch`` encoder on ``device`` with flax's initialisers
-    and random BatchNorm statistics, drawn there from ``seed``."""
+def seeded_encoder(arch, seed, device, px):
+    """The port's ``arch`` encoder at ``px`` on ``device`` with flax's
+    initialisers and random BatchNorm statistics, drawn there from ``seed``."""
     import torch
     from sat_tpu_torch.config import SATConfig
     from sat_tpu_torch.models.backbones import flax_init_
     from sat_tpu_torch.models.encoder import encoder_from_config
     g = torch.Generator(device).manual_seed(seed)
-    enc = encoder_from_config(SATConfig(encoder_arch=arch, input_size=RESNET_PX))
+    enc = encoder_from_config(SATConfig(encoder_arch=arch, input_size=px))
     return randomise_bn(flax_init_(enc.to(device), g), g)
 
 
-def write_resnet_weights(path, seed, device):
-    """A seeded torchvision-layout ``RESNET_ARCH`` state_dict (random
-    BatchNorm statistics) written to ``path`` by the port's exporter, the
-    file a user passes as ``--pretrained_weights``."""
+def write_torchvision_weights(arch, px, path, seed, device):
+    """A seeded torchvision-layout ``arch`` state_dict (random BatchNorm
+    statistics) written to ``path`` by the port's exporter, the file a user
+    passes as ``--pretrained_weights``; returns its number of keys."""
     import torch
     from sat_tpu_torch.models.jax_import import encoder_to_jax
     from sat_tpu_torch.models.lightning_export import export_backbone
-    params, stats = encoder_to_jax(seeded_encoder(RESNET_ARCH, seed, device))
-    sd = export_backbone(RESNET_ARCH, params["backbone"], stats["backbone"])
+    params, stats = encoder_to_jax(seeded_encoder(arch, seed, device, px))
+    sd = export_backbone(arch, params["backbone"], stats["backbone"])
     torch.save({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}, path)
     return len(sd)
 
 
-def vocab_config(v):
-    """``RESNET_ARCH`` at ``RESNET_PX``, ``encoder_size`` ``RESNET_SIZE`` (D 2048)
-    with the default decoder widths and a vocabulary of v synthetic words
-    (the 4 specials last, <PAD> 0)."""
+def vocab_config(v, arch, px, size, dim):
+    """``arch`` at ``px`` with ``encoder_size`` ``size`` and D ``dim``, the
+    default decoder widths and a vocabulary of v synthetic words (the 4
+    specials last, <PAD> 0)."""
     from sat_tpu_torch.config import SATConfig
     stoi = {f"w{i}": i for i in range(1, v - 3)}
     stoi.update({"<UNK>": v - 3, "<START>": v - 2, "<END>": v - 1, "<PAD>": 0})
-    return SATConfig(encoder_arch=RESNET_ARCH, input_size=RESNET_PX, encoder_size=RESNET_SIZE,
-                     encoder_dim=2048, embed_dim=256, attention_dim=128, decoder_dim=512,
+    return SATConfig(encoder_arch=arch, input_size=px, encoder_size=size,
+                     encoder_dim=dim, embed_dim=256, attention_dim=128, decoder_dim=512,
                      deep_output=True, vocab_size=v, vocab_stoi=stoi)
 
 
@@ -1724,31 +1754,18 @@ def fmt_time(label, t, extra=""):
     return f"{label}: {t['ms']:.3f} ms{extra}, busy {busy}, device idle {idle}"
 
 
-def resnet_phase(dev, js, card):
-    """Phase 13: the ResNet configuration with the full augmentation
-    (module docstring); ``js`` is phase 9's dataset."""
+def encoders_card_vs_cpu(archs, dev, px, img_seed, w_seed, tag):
+    """Each of ``archs``' encoders at B_ENC and ``px`` with seeded weights
+    and BatchNorm statistics, eval and train mode, card against CPU:
+    annotations within 1e-3 of their scale (float32 convolutions summed in
+    other orders, cuDNN's and oneDNN's: ~1e-5 of the scale measured through
+    18 to 152 layers), running statistics within rtol 1e-3.  Returns each
+    arch's errors."""
     import torch
-    from sat_tpu_torch.config import args_from_config
-    from sat_tpu_torch.data import transforms as TT
-    from sat_tpu_torch.decode.beam import greedy_decode
-    from sat_tpu_torch.kernels import decoder_step as KS
-    from sat_tpu_torch.kernels import greedy_loop as KL
-    from sat_tpu_torch.models import decoder as TD
-    from sat_tpu_torch.models import lightning_export
-    from sat_tpu_torch.models.backbones import RESNET_ARCHS
-    from sat_tpu_torch.train import loop
-    from sat_tpu_torch.train.checkpoints import (load_any_checkpoint,
-                                                 load_model_from_checkpoint,
-                                                 read_checkpoint_config)
-    from sat_tpu_torch.vocab import Vocab
-
-    out, stamps = {}, {"a encoders": time.perf_counter()}
-    cpu = torch.device("cpu")
-    # (a) every ResNet-family encoder, card against CPU, eval and train mode
-    x = torch.from_numpy(scenes(B_ENC, RESNET_PX, seed=13))
+    x = torch.from_numpy(scenes(B_ENC, px, seed=img_seed))
     enc_err = {}
-    for i, arch in enumerate(RESNET_ARCHS):
-        on_card = seeded_encoder(arch, 40 + i, dev)
+    for i, arch in enumerate(archs):
+        on_card = seeded_encoder(arch, w_seed + i, dev, px)
         on_cpu = copy.deepcopy(on_card).cpu()
         errs = {}
         for mode in ("eval", "train"):
@@ -1757,71 +1774,390 @@ def resnet_phase(dev, js, card):
                 got = on_card.train(mode == "train")(x.to(dev)).cpu()
             scale = ref.abs().max().item()
             errs[mode] = (got - ref).abs().max().item() / max(1.0, scale)
-            check(got.shape == ref.shape == (B_ENC, (RESNET_PX // 32) ** 2, on_cpu.backbone.out_channels)
-                  and torch.isfinite(got).all(), f"resnet (a): {arch} {mode} annotations")
+            check(got.shape == ref.shape == (B_ENC, (px // 32) ** 2, on_cpu.backbone.out_channels)
+                  and torch.isfinite(got).all(), f"{tag}: {arch} {mode} annotations")
         bn = bn_stats_err(on_card, on_cpu, rtol=1e-3)
         errs["bn_var"], errs["bn_mean"] = bn["var"]["err"], bn["mean"]["err"]
         enc_err[arch] = errs
-        # float32 convolutions summed in other orders (cuDNN's algorithms,
-        # oneDNN's) through 18 to 152 layers: ~1e-5 of the scale measured
         check(errs["eval"] <= 1e-3 and errs["train"] <= 1e-3,
-              f"resnet (a): {arch} annotations within 1e-3 of their scale ({errs})")
+              f"{tag}: {arch} annotations within 1e-3 of their scale ({errs})")
         check(bn["var"]["err"] <= 1 and bn["mean"]["err"] <= 1,
-              f"resnet (a): {arch} running statistics within rtol 1e-3 ({bn})")
+              f"{tag}: {arch} running statistics within rtol 1e-3 ({bn})")
         del on_cpu, on_card
-    print(f"[resnet] (a) {len(RESNET_ARCHS)} encoders at B={B_ENC}, {RESNET_PX} px, card against "
+    print(f"[{tag}] {len(archs)} encoders at B={B_ENC}, {px} px, card against "
           "CPU, max |diff| / max(1, max |ref|) in eval and train mode, and the running "
           "statistics' worst error over rtol 1e-3: " + "; ".join(
               f"{a} " + ", ".join(f"{k} {v:.1e}" for k, v in e.items())
               for a, e in enc_err.items()), flush=True)
-    out["a_encoders"] = enc_err
+    return enc_err
 
-    # (a) the decode kernels at L 196, D 2048, V 4096
-    stamps["a kernels"] = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="sat_resnet_")
-    weights = os.path.join(tmp, f"{RESNET_ARCH}_torchvision.pt")
-    n_keys = write_resnet_weights(weights, 50, dev)
-    from sat_tpu_torch.models.model import SATModel
-    vcfg = vocab_config(V_REF).replace(pretrained=True, pretrained_weights=weights)
-    ref_model = SATModel.create(vcfg, torch.Generator(dev).manual_seed(51)).eval()
-    params, vcfg = ref_model.decoder, ref_model.cfg
-    imgs192 = torch.from_numpy(scenes(B_BEAM, RESNET_PX, seed=14)).to(dev)
-    an192 = ref_model.encode(imgs192)
-    L, D = an192.shape[1:]
+
+def decode_kernel_checks(model, imgs, rows, tag, loop=True):
+    """Both decode kernels of ``model`` against their plain versions on its
+    annotations of ``imgs``: the step at each of ``rows`` rows and, where
+    ``loop``, the loop at B rows, f32 and bf16, with the launch plans
+    printed and each tiled product filling 64 blocks.  Returns {"L", "D",
+    "plans", "args": the step's arguments by rows (f"{n}_bf16" for bf16),
+    "step_err": likewise, and with ``loop`` "la": the loop's f32 arguments,
+    "loop": (agreement, max error, outputs), "loop_bf16": (agreement, max
+    error)}."""
+    import torch
+    from sat_tpu_torch.kernels import decoder_step as KS
+    from sat_tpu_torch.kernels import greedy_loop as KL
+    from sat_tpu_torch.models import decoder as TD
+    params, vcfg = model.decoder, model.cfg
+    an_all = model.encode(imgs)
+    L, D = an_all.shape[1:]
     H, E, A, V = vcfg.decoder_dim, vcfg.embed_dim, vcfg.attention_dim, vcfg.vocab_size
-    check((L, D) == (RESNET_SIZE ** 2, 2048), f"resnet (a): annotations {L} x {D}")
-    plans = {"greedy loop phases": KL.loop_plan(B, L, D, A, H, E, V),
-             "decoder step kernels": KS.step_plan(B_BEAM, L, D, A, H, E)}
+    plans = {"decoder step kernels": KS.step_plan(max(rows), L, D, A, H, E)}
+    if loop:
+        plans["greedy loop phases"] = KL.loop_plan(B, L, D, A, H, E, V)
     for what, plan in plans.items():
         print(f"[design] {what}, f32 L={L} D={D} V={V}: " + "; ".join(
             f"{k} grid {g} x {n} threads, smem {dyn} B dynamic + {st} B static"
             for k, (g, n, dyn, st) in plan.items()), flush=True)
         for k in ("hside", "gates", "deepout"):
             check(plan[k][0][0] * plan[k][0][1] * plan[k][0][2] >= 64,
-                  f"resnet (a) {what}: {k} fills 64 blocks")
-    out["plans"] = plans
+                  f"{tag} {what}: {k} fills 64 blocks")
+    bf = lambda t: t.to(torch.bfloat16).contiguous()
     args, errs = {}, {}
-    for n in (B, B_BEAM):
-        an = an192[:n].contiguous()
+    for n in rows:
+        an = an_all[:n].contiguous()
         ae = TD.attention_precompute(params, an)
         h0, c0 = (t[0].contiguous() for t in TD.init_lstm_state(params, an, vcfg))
-        ids = torch.from_numpy(np.random.default_rng(15).integers(1, V - 3, size=n)).to(dev)
+        ids = torch.from_numpy(np.random.default_rng(15).integers(1, V - 3, size=n)).to(an.device)
         e = TD.embed_tokens(params, ids, vcfg).contiguous()
         args[n] = (KS.step_weights(params, vcfg), vcfg, e, h0, c0, an, ae)
-        bf = lambda t: t.to(torch.bfloat16).contiguous()
         args[f"{n}_bf16"] = (KS.step_weights(params, vcfg, torch.bfloat16), vcfg,
                              *map(bf, (e, h0, c0, an, ae)))
-        errs[n] = check_step(f"L={L} D={D} N={n} f32", args[n])[1]
-        errs[f"{n}_bf16"] = check_step(f"L={L} D={D} N={n} bf16", args[f"{n}_bf16"],
+        errs[n] = check_step(f"{tag} L={L} D={D} N={n} f32", args[n])[1]
+        errs[f"{n}_bf16"] = check_step(f"{tag} L={L} D={D} N={n} bf16", args[f"{n}_bf16"],
                                        rel=1e-2)[1]
-    _, _, e, h0, c0, an, ae = args[B]
-    la = (*KL.loop_weights(params, vcfg, torch.float32), vcfg, an, ae, h0, c0)
-    la16 = (*KL.loop_weights(params, vcfg, torch.bfloat16), vcfg,
-            *(t.to(torch.bfloat16).contiguous() for t in (an, ae, h0, c0)))
-    loop_rate, loop_err, kl = check_loop(f"L={L} D={D} V={V} B={B} f32", la)
-    loop_rate16, loop_err16, _ = check_loop(f"L={L} D={D} V={V} B={B} bf16", la16, bf16=True)
-    out["a_kernels"] = {"step_err": errs, "loop_agreement": loop_rate, "loop_err": loop_err,
-                        "loop_agreement_bf16": loop_rate16, "loop_err_bf16": loop_err16}
+    out = {"L": L, "D": D, "plans": plans, "args": args, "step_err": errs}
+    if loop:
+        _, _, e, h0, c0, an, ae = args[B]
+        la = (*KL.loop_weights(params, vcfg, torch.float32), vcfg, an, ae, h0, c0)
+        la16 = (*KL.loop_weights(params, vcfg, torch.bfloat16), vcfg, *map(bf, (an, ae, h0, c0)))
+        out.update(la=la, loop=check_loop(f"{tag} L={L} D={D} V={V} B={B} f32", la),
+                   loop_bf16=check_loop(f"{tag} L={L} D={D} V={V} B={B} bf16", la16,
+                                        bf16=True)[:2])
+    return out
+
+
+def steps_card_vs_cpu(cfg_c, dev, draw_seed, tag):
+    """Three ``Trainer.train_step`` calls at B_TRAIN_CHECK with ``cfg_c`` on
+    the CPU and on the card from the CPU's initial weights, the augment fed
+    the same CPU draws: losses and CE within 1e-4, decoder parameters within
+    1e-5 of each leaf's scale, BatchNorm statistics within rtol 1e-3.  The
+    encoder's update (its weights less the initial ones) is 0 on both where
+    it is frozen; where it is finetuned, the same steps run on the CPU in
+    float64 too, and the card's update must lie no farther from that one
+    than twice the CPU's float32 update does: the float32 update through
+    train-mode BatchNorm is ill-conditioned (on an H100 the card's and the
+    CPU's differed by 1.4e-2 of its norm, and on the CPU float32 lay 5.6e-2
+    from float64), so neither a leaf's scale nor a fixed bound measures it.
+    Returns the errors and the card's losses."""
+    import torch
+    from sat_tpu_torch.data import transforms as TT
+    from sat_tpu_torch.train import loop
+    from sat_tpu_torch.vocab import Vocab
+    cpu, real_draws = torch.device("cpu"), TT._draws
+    batch = caption_batch(Vocab(cfg_c.vocab_stoi), B_TRAIN_CHECK, seed=18)
+    hw = (cfg_c.input_size, cfg_c.input_size)
+    step_draws = [real_draws(torch.Generator().manual_seed(draw_seed + i), B_TRAIN_CHECK,
+                             hw, cfg_c, cpu) for i in range(3)]
+    finetuned = cfg_c.encoder_finetune_after > 0
+    runs, start = {}, None
+    for name, d in (("cpu", cpu), ("card", dev)) + ((("cpu f64", cpu),) if finetuned else ()):
+        fed = iter(step_draws)
+        TT._draws = lambda g, b, hw, c, device: {k: v.to(device) for k, v in next(fed).items()}
+        try:
+            tr = loop.Trainer(cfg_c, device=d)
+            if start is None:         # the CPU's initial weights, for all
+                start = copy.deepcopy(tr.model.state_dict())
+            else:
+                tr.model.load_state_dict(start)
+            if name == "cpu f64":
+                tr.model.double()
+                tr.augment = lambda g, x, aug=tr.augment: aug(g, x).double()
+            runs[name] = (tr, torch.stack([torch.stack([m["loss"], m["ce_loss"]])
+                                           for m in (tr.train_step(batch)
+                                                     for _ in range(3))]).double().cpu())
+        finally:
+            TT._draws = real_draws
+    (gpu, m_gpu), (ctr, m_cpu) = runs["card"], runs["cpu"]
+    loss_rel = ((m_gpu - m_cpu).abs() / m_cpu.abs()).max().item()
+    dec_err = max(max_rel_err(gpu.model.decoder.state_dict(),
+                              ctr.model.decoder.state_dict()).values())
+    update = {name: torch.cat([(p.detach().double().cpu() - start["encoder." + k].double()).flatten()
+                               for k, p in tr.model.encoder.named_parameters()])
+              for name, (tr, _) in runs.items()}
+    norm = update["cpu f64" if finetuned else "cpu"].norm().item()
+    gap = lambda a, b: (update[a] - update[b]).norm().item() / max(norm, 1e-300)
+    enc = {"update_norm": norm, "card_vs_cpu": gap("card", "cpu")}
+    if finetuned:
+        enc.update(card_vs_f64=gap("card", "cpu f64"), cpu_vs_f64=gap("cpu", "cpu f64"))
+    bn = bn_stats_err(gpu.model.encoder, ctr.model.encoder, rtol=1e-3)
+    print(f"[{tag}] 3 {cfg_c.opt.upper()} steps at B={B_TRAIN_CHECK} on the same draws, "
+          f"encoder finetuned from step {cfg_c.encoder_finetune_after} (0: frozen), card "
+          f"against CPU: losses {m_gpu[:, 0].tolist()}, max rel err of loss and CE "
+          f"{loss_rel:.2e}, decoder params {dec_err:.2e} of each leaf's scale, the "
+          f"encoder's update over its norm {enc}, BatchNorm statistics' worst error over "
+          f"rtol 1e-3: var {bn['var']['err']:.3g}, mean {bn['mean']['err']:.3g}", flush=True)
+    check(loss_rel <= 1e-4, f"{tag}: loss and CE agree within 1e-4 ({loss_rel})")
+    check(dec_err <= 1e-5, f"{tag}: decoder parameters within 1e-5 ({dec_err})")
+    if finetuned:
+        check(norm > 0 and enc["card_vs_f64"] <= 2 * enc["cpu_vs_f64"],
+              f"{tag}: the card's encoder update within twice the CPU's float32 gap "
+              f"to float64 ({enc})")
+    else:
+        check(norm == 0 and enc["card_vs_cpu"] == 0, f"{tag}: the frozen encoder stays ({enc})")
+    check(bn["var"]["err"] <= 1 and bn["mean"]["err"] <= 1,
+          f"{tag}: BatchNorm statistics within rtol 1e-3 ({bn})")
+    return {"losses": m_gpu[:, 0].tolist(), "loss_ce_rel_err": loss_rel,
+            "decoder_param_err": dec_err, "encoder_update": enc,
+            "bn_var_err": bn["var"]["err"], "bn_mean_err": bn["mean"]["err"]}
+
+
+def steps_on_one_batch(cfg, js, log_dir, dev, tag):
+    """TRAIN_STEPS steps at B_TRAIN on the first batch of phase 9's train
+    split, whose loss must fall by 10 % (random words over the locations
+    leave the loss almost nothing to fall to: the attention term starts at
+    its floor, the CE at ln V for words drawn uniformly, so the dataset's
+    own captions), then the step's ms, busy ms by part and peak memory."""
+    import torch
+    from sat_tpu_torch.train import loop
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr = loop.Trainer(cfg.replace(json=js), log_root=log_dir, device=dev)
+    tr.train_loader.set_epoch(0)
+    batch = next(iter(tr.train_loader))
+    check(len(batch["images"]) == B_TRAIN, f"{tag}: a full batch")
+    metrics = [tr.train_step(batch) for _ in range(TRAIN_STEPS)]
+    loss = torch.stack([m["loss"] for m in metrics]).cpu()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    first, last = loss[:5].mean().item(), loss[-5:].mean().item()
+    print(f"[{tag}] {TRAIN_STEPS} steps at B={B_TRAIN} on phase 9's first batch "
+          f"({cfg.encoder_arch}, encoder_size {cfg.encoder_size}, encoder finetuned from "
+          f"step {cfg.encoder_finetune_after} (0: frozen), jitter {cfg.aug_color_jitter}, "
+          f"optical {cfg.aug_optical_strength}): loss {loss[0]:.4f} -> {loss[-1]:.4f}, "
+          f"mean of steps 1-5 {first:.4f}, of the last 5 {last:.4f} ({last / first:.3f}); "
+          f"peak memory {peak:.3f} GiB above the {held / 2 ** 30:.3f} GiB held", flush=True)
+    check(torch.isfinite(loss).all(), f"{tag}: finite losses")
+    check(last <= 0.9 * first, f"{tag}: the loss falls by 10 % ({last} > 0.9 x {first})")
+    step_ms = cuda_ms(lambda: tr.train_step(batch), warmup=2, reps=5)
+    busy, parts = train_busy(tr, batch)
+    return {"loss": loss.tolist(), "first5": first, "last5": last, "peak_memory_gib": peak,
+            "step": {"ms": step_ms, "imgs_per_s": B_TRAIN / step_ms * 1e3,
+                     "busy_ms": busy, "device_idle": 1 - busy / step_ms,
+                     "busy_parts_ms": parts}}
+
+
+def cli_serve_lightning(cfg, js, tmp, epochs, n_keys, dev, tag):
+    """The training CLI with ``cfg`` for ``epochs`` epochs on phase 9's
+    dataset, ``last.ckpt`` read back bit for bit; ``serve`` of it on phase
+    10's JPEGs, the first 16 records equal to the CPU's; the checkpoint as
+    a Lightning ``.ckpt`` read back bit for bit.  Returns (the report's
+    entries, the model of ``last.ckpt`` on the card)."""
+    import torch
+    from sat_tpu_torch import serve
+    from sat_tpu_torch.config import args_from_config
+    from sat_tpu_torch.kernels import decoder_step as KS
+    from sat_tpu_torch.models import lightning_export
+    from sat_tpu_torch.train.checkpoints import load_any_checkpoint, load_model_from_checkpoint
+    argv = args_from_config(cfg.replace(json=js, epochs=epochs)) + [
+        "--log_root", os.path.join(tmp, "cli")]
+    print(f"[{tag}] python -m sat_tpu_torch.train {' '.join(argv)}", flush=True)
+    KS.launches = 0
+    trainer, calls, window = logged_fit(argv, None)
+    torch.cuda.synchronize()
+    fit_calls = KS.launches
+    epoch_loss = [v for _, v in points(calls, "loss/train_epoch")]
+    last_ckpt = os.path.join(trainer.logdir, "last.ckpt")
+    model, _ = load_model_from_checkpoint(last_ckpt, device=dev)
+    sd, back = trainer.model.state_dict(), model.state_dict()
+    exact = sd.keys() == back.keys() and all(torch.equal(sd[k], back[k]) for k in sd)
+    steps = FIT_TRAIN // B_TRAIN * epochs
+    print(f"[{tag}] {epochs} epochs: epoch mean losses {epoch_loss}, val "
+          f"BLEU-4 {[v for _, v in points(calls, 'bleu4/val_epoch')]}, {fit_calls} "
+          f"step-kernel calls in the validations, step {trainer.global_step}; last.ckpt "
+          f"({os.path.getsize(last_ckpt) / 2 ** 20:.1f} MiB) reads back bit for bit: "
+          f"{exact}", flush=True)
+    check(all(np.isfinite(v) for v in epoch_loss) and len(epoch_loss) == epochs,
+          f"{tag}: finite epoch losses")
+    check(trainer.global_step == steps, f"{tag}: {trainer.global_step} steps")
+    check(fit_calls > 0, f"{tag}: the validations ran the step kernels")
+    check(exact, f"{tag}: last.ckpt gives every parameter and buffer bit for bit")
+    out = {"argv": argv, "epoch_loss": epoch_loss, "step_calls": fit_calls,
+           "profile_epoch_2": window,
+           "epochs": [{"wall_s": t["seconds"], "train_s": t["train"]["seconds"]}
+                      for t in trainer.epoch_timings]}
+    del trainer
+
+    img_dir = os.path.join(tmp, "images")
+    os.makedirs(img_dir)
+    write_jpegs(img_dir, SERVE_N, seed=10)        # phase 10's files
+    paths = serve.gather_images([img_dir])
+    base = ["--checkpoint", last_ckpt, "--images", img_dir, "--batch", str(SERVE_BATCH),
+            "--beamk", str(K_BEAM), "--rescore_method", "LN", "--precision", "32"]
+    recs, calls_s, wall_s, tm = serve_run(base, os.path.join(tmp, "serve.jsonl"))
+    cpu_recs, _, _, cpu_tm = serve_run(
+        ["--checkpoint", last_ckpt, "--images", *paths[:16], "--batch", "16"] + base[6:],
+        os.path.join(tmp, "serve_cpu.jsonl"), device="cpu")
+    same16 = sum(g["caption"] == c["caption"] for g, c in zip(recs[:16], cpu_recs))
+    gaps = [max(abs(g["score"] - c["score"]), abs(g["perplexity"] - c["perplexity"]))
+            for g, c in zip(recs[:16], cpu_recs)]
+    print(f"[{tag}] serve of last.ckpt on phase 10's {len(paths)} files ({tm['route']}): "
+          f"{len(recs)} records, {calls_s} step-kernel calls, {wall_s:.2f} s; first 16 "
+          f"against the CPU ({cpu_tm['route']}): {same16}/16 captions equal, largest score "
+          f"or perplexity gap {max(gaps):.2e}; e.g. {recs[0].get('caption')!r}", flush=True)
+    check(len(recs) == SERVE_N + 1 and sum("error" in r for r in recs) == 1,
+          f"{tag}: serve gives a record per file, one error")
+    check(calls_s > 0, f"{tag}: serve ran the step kernels")
+    check(cpu_tm["route"] == tm["route"] and same16 == 16 and max(gaps) <= 1e-4,
+          f"{tag}: {same16}/16 captions equal to the CPU's, gap {max(gaps)}")
+    lt = os.path.join(tmp, "lightning.ckpt")
+    lightning_export.main(["--input", last_ckpt, "--output", lt])
+    a_sd, b_sd = load_any_checkpoint(last_ckpt).state_dict(), load_any_checkpoint(lt).state_dict()
+    lt_exact = a_sd.keys() == b_sd.keys() and all(torch.equal(a_sd[k], b_sd[k]) for k in a_sd)
+    print(f"[{tag}] the Lightning .ckpt ({os.path.getsize(lt) / 2 ** 20:.1f} MiB, "
+          f"{n_keys} backbone keys in the torchvision file it started from) reads back "
+          f"bit for bit: {lt_exact}", flush=True)
+    check(lt_exact, f"{tag}: the Lightning file gives every leaf bit for bit")
+    out.update(serve_records=len(recs), serve_step_calls=calls_s,
+               serve_cpu_equal_of_16=same16, serve_cpu_max_gap=max(gaps),
+               lightning_bit_for_bit=lt_exact)
+    return out, model
+
+
+def main_path_and_times(model, imgs, kc, train, card, tag, extra=None):
+    """The slice's main path, counted: greedy and beam captioning of
+    ``model`` on ``imgs`` (encode, then the loop kernel; encode, then the
+    step kernels at B k rows); then the times of encode, the step at N =
+    B_BEAM and the loop on ``kc``'s arguments (``decode_kernel_checks``),
+    greedy and beam captioning and ``extra``'s functions; the train step
+    ``train`` (``steps_on_one_batch``); both kernels' bounds and their
+    entries of the ``kernels`` line."""
+    import torch
+    from sat_tpu_torch.decode.beam import greedy_decode
+    from sat_tpu_torch.kernels import decoder_step as KS
+    from sat_tpu_torch.kernels import greedy_loop as KL
+    KS.launches = KL.launches = 0
+    res = greedy_decode(model.decoder, model.cfg, model.encode(imgs), max_gen_length=S)
+    caps = model.caption(imgs, beamk=K_BEAM, max_gen_length=S, rescore_method="LN")[0]
+    torch.cuda.synchronize()
+    launches = {"decoder_step": KS.launches, "greedy_loop": KL.launches}
+    print(f"[{tag}] main path launches (greedy, then beam captioning of {B} images): "
+          f"{launches}", flush=True)
+    check(launches == {"decoder_step": S + 1, "greedy_loop": 1},
+          f"{tag}: the main path ran the loop kernel once and the step kernels per step")
+    check(res.tokens.shape == (B, 1, S + 2) and len(caps) == B, f"{tag}: result shapes")
+
+    la, a192 = kc["la"], kc["args"][B_BEAM]
+    times = {
+        "encode": timed(lambda: model.encode(imgs)),
+        "decoder_step_192": timed(lambda: KS.fused_decoder_step(*a192),
+                                  "decoder_step_", calls=20, profiled=10,
+                                  parts=KS.KERNELS),
+        "decoder_step_192_plain": timed(lambda: KS.fused_decoder_step_plain(*a192),
+                                        calls=20, profiled=10),
+        "greedy_loop": timed(lambda: KL.greedy_loop(*la, max_gen_length=S), "greedy_loop_",
+                             parts=KL.PHASES),
+        "greedy_loop_plain": timed(lambda: KL.greedy_loop_plain(*la, max_gen_length=S)),
+        "greedy_captioning": timed(lambda: greedy_decode(
+            model.decoder, model.cfg, model.encode(imgs), max_gen_length=S)),
+        "beam_captioning": timed(lambda: model.caption(
+            imgs, beamk=K_BEAM, max_gen_length=S, rescore_method="LN"), reps=5),
+    }
+    times.update({k: timed(fn) for k, fn in (extra or {}).items()})
+    for k, t in times.items():
+        rate = f" per batch of {B}, {B / t['ms'] * 1e3:.0f} imgs/s" if "captioning" in k \
+            or k == "encode" else ""
+        parts = t.get("busy_parts_ms")
+        tail = "" if not parts else "; busy by kernel: " + ", ".join(
+            f"{p} {'not measured' if v is None else f'{v * 1e3:.1f} us'}"
+            for p, v in parts.items())
+        print(f"[time] {tag} ({card}) " + fmt_time(k, t, rate) + tail, flush=True)
+    st = train["step"]
+    print(f"[time] {tag} ({card}) train step at B={B_TRAIN}: {st['ms']:.3f} ms, "
+          f"{st['imgs_per_s']:.0f} imgs/s, busy {st['busy_ms']:.3f} ms, device idle "
+          f"{st['device_idle']:.1%}, peak memory {train['peak_memory_gib']:.3f} GiB; "
+          "busy by part: " + ", ".join(f"{k} {v:.3f} ms" for k, v in st["busy_parts_ms"].items()),
+          flush=True)
+    # bounds: inputs read once, outputs written once; this run's operations
+    vcfg, (L, D) = la[-5], (kc["L"], kc["D"])
+    H, E, A, V = vcfg.decoder_dim, vcfg.embed_dim, vcfg.attention_dim, vcfg.vocab_size
+    step_out = KS.fused_decoder_step(*a192)
+    step_bound, step_by = bound(nbytes(*a192[0], *a192[2:], *step_out),
+                                B_BEAM * step_flops(L, D, A, H, E), "float32")
+    kl = kc["loop"][2]
+    steps_run = torch.where(kl[4], kl[3] + 1, S + 1).sum().item()
+    loop_bound, loop_by = bound(nbytes(*la[-4:], *la[0], *la[1:-5], *kl),
+                                steps_run * (step_flops(L, D, A, H, E) + 2 * E * V), "float32")
+    print(f"[time] {tag} bounds: step at N={B_BEAM} {step_bound:.4f} ms ({step_by}); "
+          f"greedy loop at B={B}, V={V}, {steps_run} row-steps {loop_bound:.4f} ms "
+          f"({loop_by})", flush=True)
+    kernels = [
+        {"name": f"decoder_step_L{L}_D{D}", "route": "cuda",
+         "source": "sat_tpu_torch/csrc/decoder_step.cu",
+         "replaces": "sat_tpu/kernels/decoder_step.py:72",
+         "launches": launches["decoder_step"], "rows": B_BEAM,
+         "max_abs_err": max(kc["step_err"][B_BEAM].values()),
+         "ms": times["decoder_step_192"]["ms"],
+         "plain_ms": times["decoder_step_192_plain"]["ms"],
+         "bound_ms": step_bound, "bound_by": step_by, "library_ms": None},
+        {"name": f"greedy_loop_L{L}_D{D}_V{V}", "route": "cuda",
+         "source": "sat_tpu_torch/csrc/greedy_loop.cu",
+         "replaces": "sat_tpu/kernels/greedy_loop.py:42",
+         "launches": launches["greedy_loop"], "rows": B, "max_abs_err": kc["loop"][1],
+         "ms": times["greedy_loop"]["ms"], "plain_ms": times["greedy_loop_plain"]["ms"],
+         "bound_ms": loop_bound, "bound_by": loop_by, "library_ms": None},
+    ]
+    return {"launches": launches, "times": times, "kernels": kernels,
+            "bounds": dict(step_bound_ms=step_bound, step_bound_by=step_by,
+                           loop_bound_ms=loop_bound, loop_bound_by=loop_by,
+                           loop_rows_steps=steps_run)}
+
+
+def phase_seconds(stamps, n):
+    stamps["end"] = time.perf_counter()
+    names = list(stamps)
+    out = {a: stamps[b] - stamps[a] for a, b in zip(names, names[1:])}
+    print(f"[time] seconds per part of phase {n}: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out.items()), flush=True)
+    return out
+
+
+def resnet_phase(dev, js, card):
+    """Phase 13: the ResNet configuration with the full augmentation
+    (module docstring); ``js`` is phase 9's dataset."""
+    import torch
+    from sat_tpu_torch.data import transforms as TT
+    from sat_tpu_torch.models.backbones import RESNET_ARCHS
+    from sat_tpu_torch.models.model import SATModel
+    from sat_tpu_torch.train.checkpoints import read_checkpoint_config
+
+    out, stamps = {}, {"a encoders": time.perf_counter()}
+    cpu = torch.device("cpu")
+    # (a) every ResNet-family encoder, card against CPU, eval and train mode
+    out["a_encoders"] = encoders_card_vs_cpu(RESNET_ARCHS, dev, RESNET_PX, 13, 40, "resnet (a)")
+
+    # (a) the decode kernels at L 196, D 2048, V 4096
+    stamps["a kernels"] = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="sat_resnet_")
+    weights = os.path.join(tmp, f"{RESNET_ARCH}_torchvision.pt")
+    n_keys = write_torchvision_weights(RESNET_ARCH, RESNET_PX, weights, 50, dev)
+    vcfg = vocab_config(V_REF, RESNET_ARCH, RESNET_PX, RESNET_SIZE, 2048).replace(
+        pretrained=True, pretrained_weights=weights)
+    ref_model = SATModel.create(vcfg, torch.Generator(dev).manual_seed(51)).eval()
+    imgs192 = torch.from_numpy(scenes(B_BEAM, RESNET_PX, seed=14)).to(dev)
+    kc = decode_kernel_checks(ref_model, imgs192, (B, B_BEAM), "resnet (a)")
+    check((kc["L"], kc["D"]) == (RESNET_SIZE ** 2, 2048),
+          f"resnet (a): annotations {kc['L']} x {kc['D']}")
+    out["plans"] = kc["plans"]
+    out["a_kernels"] = {"step_err": kc["step_err"], "loop_agreement": kc["loop"][0],
+                        "loop_err": kc["loop"][1], "loop_agreement_bf16": kc["loop_bf16"][0],
+                        "loop_err_bf16": kc["loop_bf16"][1]}
 
     # (b) the augment, card against CPU on the CPU's draws
     stamps["b augment"] = time.perf_counter()
@@ -1877,235 +2213,118 @@ def resnet_phase(dev, js, card):
                            input_size=RESNET_PX, batch=B_TRAIN, encoder_arch=RESNET_ARCH, encoder_size=RESNET_SIZE,
                            encoder_dim=None, pretrained=True, pretrained_weights=weights,
                            aug_color_jitter=AUG_JITTER, aug_optical_strength=AUG_OPTICAL)
-    cfg_c = cfg13.replace(opt="sgd", momentum=0.0, decoder_tf="always", dropout=0.0,
-                          embedding_dropout=0.0, batch=B_TRAIN_CHECK)
-    vocab = Vocab(header.vocab_stoi)
-    batch_c = caption_batch(vocab, B_TRAIN_CHECK, seed=18)
-    step_draws = [real_draws(torch.Generator().manual_seed(60 + i), B_TRAIN_CHECK,
-                             (RESNET_PX, RESNET_PX), cfg_c, cpu) for i in range(3)]
-    runs, start = {}, None
-    for d in (cpu, dev):
-        fed = iter(step_draws)
-        TT._draws = lambda g, b, hw, c, device: {k: v.to(device) for k, v in next(fed).items()}
-        try:
-            tr = loop.Trainer(cfg_c, device=d)
-            if start is None:         # the CPU's initial weights, for both
-                start = copy.deepcopy(tr.model.state_dict())
-            else:
-                tr.model.load_state_dict(start)
-            runs[d.type] = (tr, torch.stack([torch.stack([m["loss"], m["ce_loss"]])
-                                             for m in (tr.train_step(batch_c)
-                                                       for _ in range(3))]).cpu())
-        finally:
-            TT._draws = real_draws
-    (gpu, m_gpu), (ctr, m_cpu) = runs[dev.type], runs["cpu"]
-    loss_rel = ((m_gpu - m_cpu).abs() / m_cpu.abs()).max().item()
-    dec_err = max(max_rel_err(gpu.model.decoder.state_dict(),
-                              ctr.model.decoder.state_dict()).values())
-    bn = bn_stats_err(gpu.model.encoder, ctr.model.encoder, rtol=1e-3)
-    print(f"[resnet] (c) 3 SGD steps at B={B_TRAIN_CHECK} with the augment on the same "
-          f"draws, card against CPU: losses {m_gpu[:, 0].tolist()}, max rel err of loss "
-          f"and CE {loss_rel:.2e}, decoder params {dec_err:.2e} of each leaf's scale, "
-          f"BatchNorm statistics' worst error over rtol 1e-3: var {bn['var']['err']:.3g}, "
-          f"mean {bn['mean']['err']:.3g}", flush=True)
-    check(loss_rel <= 1e-4, f"resnet (c): loss and CE agree within 1e-4 ({loss_rel})")
-    check(dec_err <= 1e-5, f"resnet (c): decoder parameters within 1e-5 ({dec_err})")
-    check(bn["var"]["err"] <= 1 and bn["mean"]["err"] <= 1,
-          f"resnet (c): BatchNorm statistics within rtol 1e-3 ({bn})")
-    out["c"] = {"losses": m_gpu[:, 0].tolist(), "loss_ce_rel_err": loss_rel,
-                "decoder_param_err": dec_err, "bn_var_err": bn["var"]["err"],
-                "bn_mean_err": bn["mean"]["err"]}
-    del runs, gpu, ctr
-
-    # the first batch of phase 9's train split: random words over 196
-    # locations leave the loss almost nothing to fall to (the attention
-    # term starts at its floor, (1 - T / L)^2 ~ 0.9, and the CE at ln V for
-    # words drawn uniformly), so the dataset's own captions
-    held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    tr = loop.Trainer(cfg13.replace(json=js), log_root=os.path.join(tmp, "c"), device=dev)
-    tr.train_loader.set_epoch(0)
-    batch = next(iter(tr.train_loader))
-    check(len(batch["images"]) == B_TRAIN, "resnet (c): a full batch")
-    metrics = [tr.train_step(batch) for _ in range(TRAIN_STEPS)]
-    loss = torch.stack([m["loss"] for m in metrics]).cpu()
-    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
-    first, last = loss[:5].mean().item(), loss[-5:].mean().item()
-    print(f"[resnet] (c) {TRAIN_STEPS} steps at B={B_TRAIN} on phase 9's first batch ({RESNET_ARCH}, "
-          f"encoder_size {RESNET_SIZE}, L {L}, D {D}, the header's settings with jitter "
-          f"{AUG_JITTER} and optical {AUG_OPTICAL}): loss {loss[0]:.4f} -> {loss[-1]:.4f}, "
-          f"mean of steps 1-5 {first:.4f}, of the last 5 {last:.4f} ({last / first:.3f}); "
-          f"peak memory {peak:.3f} GiB above the {held / 2 ** 30:.3f} GiB held", flush=True)
-    check(torch.isfinite(loss).all(), "resnet (c): finite losses")
-    check(last <= 0.9 * first, f"resnet (c): the loss falls by 10 % ({last} > 0.9 x {first})")
-    step_ms = cuda_ms(lambda: tr.train_step(batch), warmup=2, reps=5)
-    busy, parts = train_busy(tr, batch)
-    out["c"].update(loss=loss.tolist(), first5=first, last5=last, peak_memory_gib=peak,
-                    step={"ms": step_ms, "imgs_per_s": B_TRAIN / step_ms * 1e3,
-                          "busy_ms": busy, "device_idle": 1 - busy / step_ms,
-                          "busy_parts_ms": parts})
-    del tr
+    out["c"] = steps_card_vs_cpu(
+        cfg13.replace(opt="sgd", momentum=0.0, decoder_tf="always", dropout=0.0,
+                      embedding_dropout=0.0, batch=B_TRAIN_CHECK), dev, 60, "resnet (c)")
+    out["c"].update(steps_on_one_batch(cfg13, js, os.path.join(tmp, "c"), dev, "resnet (c)"))
 
     # (d) the training CLI, serve and the Lightning file
     stamps["d cli"] = time.perf_counter()
-    argv = args_from_config(cfg13.replace(json=js, epochs=RESNET_EPOCHS)) + [
-        "--log_root", os.path.join(tmp, "cli")]
-    print(f"[resnet] (d) python -m sat_tpu_torch.train {' '.join(argv)}", flush=True)
-    KS.launches = 0
-    trainer, calls, window = logged_fit(argv, None)
-    torch.cuda.synchronize()
-    fit_calls = KS.launches
-    epoch_loss = [v for _, v in points(calls, "loss/train_epoch")]
-    last_ckpt = os.path.join(trainer.logdir, "last.ckpt")
-    model, _ = load_model_from_checkpoint(last_ckpt, device=dev)
-    sd, back = trainer.model.state_dict(), model.state_dict()
-    exact = sd.keys() == back.keys() and all(torch.equal(sd[k], back[k]) for k in sd)
-    steps = FIT_TRAIN // B_TRAIN * RESNET_EPOCHS
-    print(f"[resnet] (d) {RESNET_EPOCHS} epochs: epoch mean losses {epoch_loss}, val "
-          f"BLEU-4 {[v for _, v in points(calls, 'bleu4/val_epoch')]}, {fit_calls} "
-          f"step-kernel calls in the validations, step {trainer.global_step}; last.ckpt "
-          f"({os.path.getsize(last_ckpt) / 2 ** 20:.1f} MiB) reads back bit for bit: "
-          f"{exact}", flush=True)
-    check(all(np.isfinite(v) for v in epoch_loss) and len(epoch_loss) == RESNET_EPOCHS,
-          "resnet (d): finite epoch losses")
-    check(trainer.global_step == steps, f"resnet (d): {trainer.global_step} steps")
-    check(fit_calls > 0, "resnet (d): the validations ran the step kernels")
-    check(exact, "resnet (d): last.ckpt gives every parameter and buffer bit for bit")
+    out["d"], model = cli_serve_lightning(cfg13, js, tmp, RESNET_EPOCHS, n_keys, dev,
+                                        "resnet (d)")
     check(model.grid_hw == (RESNET_SIZE, RESNET_SIZE), f"resnet (d): grid {model.grid_hw}")
-    out["d"] = {"argv": argv, "epoch_loss": epoch_loss, "step_calls": fit_calls,
-                "profile_epoch_2": window,
-                "epochs": [{"wall_s": t["seconds"], "train_s": t["train"]["seconds"]}
-                           for t in trainer.epoch_timings]}
-    del trainer
 
-    img_dir = os.path.join(tmp, "images")
-    os.makedirs(img_dir)
-    write_jpegs(img_dir, SERVE_N, seed=10)        # phase 10's files
-    from sat_tpu_torch import serve
-    paths = serve.gather_images([img_dir])
-    base = ["--checkpoint", last_ckpt, "--images", img_dir, "--batch", str(SERVE_BATCH),
-            "--beamk", str(K_BEAM), "--rescore_method", "LN", "--precision", "32"]
-    recs, calls_s, wall_s, tm = serve_run(base, os.path.join(tmp, "serve.jsonl"))
-    cpu_recs, _, _, cpu_tm = serve_run(
-        ["--checkpoint", last_ckpt, "--images", *paths[:16], "--batch", "16"] + base[6:],
-        os.path.join(tmp, "serve_cpu.jsonl"), device="cpu")
-    same16 = sum(g["caption"] == c["caption"] for g, c in zip(recs[:16], cpu_recs))
-    gaps = [max(abs(g["score"] - c["score"]), abs(g["perplexity"] - c["perplexity"]))
-            for g, c in zip(recs[:16], cpu_recs)]
-    print(f"[resnet] (d) serve of last.ckpt on phase 10's {len(paths)} files ({tm['route']}): "
-          f"{len(recs)} records, {calls_s} step-kernel calls, {wall_s:.2f} s; first 16 "
-          f"against the CPU ({cpu_tm['route']}): {same16}/16 captions equal, largest score "
-          f"or perplexity gap {max(gaps):.2e}; e.g. {recs[0].get('caption')!r}", flush=True)
-    check(len(recs) == SERVE_N + 1 and sum("error" in r for r in recs) == 1,
-          "resnet (d): serve gives a record per file, one error")
-    check(calls_s > 0, "resnet (d): serve ran the step kernels")
-    check(cpu_tm["route"] == tm["route"] and same16 == 16 and max(gaps) <= 1e-4,
-          f"resnet (d): {same16}/16 captions equal to the CPU's, gap {max(gaps)}")
-    lt = os.path.join(tmp, "resnet_lightning.ckpt")
-    lightning_export.main(["--input", last_ckpt, "--output", lt])
-    a_sd, b_sd = load_any_checkpoint(last_ckpt).state_dict(), load_any_checkpoint(lt).state_dict()
-    lt_exact = a_sd.keys() == b_sd.keys() and all(torch.equal(a_sd[k], b_sd[k]) for k in a_sd)
-    print(f"[resnet] (d) the Lightning .ckpt ({os.path.getsize(lt) / 2 ** 20:.1f} MiB, "
-          f"{n_keys} backbone keys in the torchvision file it started from) reads back "
-          f"bit for bit: {lt_exact}", flush=True)
-    check(lt_exact, "resnet (d): the Lightning file gives every leaf bit for bit")
-    out["d"].update(serve_records=len(recs), serve_step_calls=calls_s,
-                    serve_cpu_equal_of_16=same16, serve_cpu_max_gap=max(gaps),
-                    lightning_bit_for_bit=lt_exact)
-
-    # the slice's main path, counted: greedy and beam captioning of the
-    # trained model (encode, then the loop kernel; encode, then the step
-    # kernels at B k rows)
-    stamps["main path"] = time.perf_counter()
-    imgs = imgs192[:B]
-    KS.launches = KL.launches = 0
-    res = greedy_decode(model.decoder, model.cfg, model.encode(imgs), max_gen_length=S)
-    caps = model.caption(imgs, beamk=K_BEAM, max_gen_length=S, rescore_method="LN")[0]
-    torch.cuda.synchronize()
-    launches = {"decoder_step": KS.launches, "greedy_loop": KL.launches}
-    print(f"[resnet] main path launches (greedy, then beam captioning of {B} images): "
-          f"{launches}", flush=True)
-    check(launches == {"decoder_step": S + 1, "greedy_loop": 1},
-          "resnet: the main path ran the loop kernel once and the step kernels per step")
-    check(res.tokens.shape == (B, 1, S + 2) and len(caps) == B, "resnet: result shapes")
-    out["launches"] = launches
-
-    # (e) times
-    stamps["e times"] = time.perf_counter()
-    aug_t = {}
+    # the slice's main path, counted, and (e) times with the augment's
+    stamps["main path, e times"] = time.perf_counter()
     u64 = torch.from_numpy(np.rint(scenes(B_TRAIN, RESNET_PX, seed=20) * 255).astype(np.uint8)).to(dev)
+    extra = {}
     for label, c in (("crop + noise", header.replace(precision=32, input_size=RESNET_PX)),
                      ("crop + noise + jitter + optical", cfg13)):
-        aug = TT.build_train_augment(c)
-        g = torch.Generator(dev).manual_seed(0)
-        aug_t[label] = timed(lambda: aug(g, u64))
-    times = {
-        "encode": timed(lambda: model.encode(imgs)),
-        "decoder_step_192": timed(lambda: KS.fused_decoder_step(*args[B_BEAM]),
-                                  "decoder_step_", calls=20, profiled=10,
-                                  parts=KS.KERNELS),
-        "decoder_step_192_plain": timed(lambda: KS.fused_decoder_step_plain(*args[B_BEAM]),
-                                        calls=20, profiled=10),
-        "greedy_loop": timed(lambda: KL.greedy_loop(*la, max_gen_length=S), "greedy_loop_",
-                             parts=KL.PHASES),
-        "greedy_loop_plain": timed(lambda: KL.greedy_loop_plain(*la, max_gen_length=S)),
-        "greedy_captioning": timed(lambda: greedy_decode(
-            model.decoder, model.cfg, model.encode(imgs), max_gen_length=S)),
-        "beam_captioning": timed(lambda: model.caption(
-            imgs, beamk=K_BEAM, max_gen_length=S, rescore_method="LN"), reps=5),
-    }
-    times.update({f"augment {k}": v for k, v in aug_t.items()})
-    for k, t in times.items():
-        extra = f" per batch of {B}, {B / t['ms'] * 1e3:.0f} imgs/s" if "captioning" in k \
-            or k == "encode" else ""
-        parts = t.get("busy_parts_ms")
-        tail = "" if not parts else "; busy by kernel: " + ", ".join(
-            f"{p} {'not measured' if v is None else f'{v * 1e3:.1f} us'}"
-            for p, v in parts.items())
-        print(f"[time] resnet ({card}) " + fmt_time(k, t, extra) + tail, flush=True)
-    st = out["c"]["step"]
-    print(f"[time] resnet ({card}) train step at B={B_TRAIN}: {st['ms']:.3f} ms, "
-          f"{st['imgs_per_s']:.0f} imgs/s, busy {st['busy_ms']:.3f} ms, device idle "
-          f"{st['device_idle']:.1%}, peak memory {out['c']['peak_memory_gib']:.3f} GiB; "
-          "busy by part: " + ", ".join(f"{k} {v:.3f} ms" for k, v in st["busy_parts_ms"].items()),
-          flush=True)
-    # bounds: inputs read once, outputs written once; this run's operations
-    a192 = args[B_BEAM]
-    step_out = KS.fused_decoder_step(*a192)
-    step_bound, step_by = bound(nbytes(*a192[0], *a192[2:], *step_out),
-                                B_BEAM * step_flops(L, D, A, H, E), "float32")
-    steps_run = torch.where(kl[4], kl[3] + 1, S + 1).sum().item()
-    loop_bound, loop_by = bound(nbytes(an, ae, h0, c0, *la[0], *la[1:4], *kl),
-                                steps_run * (step_flops(L, D, A, H, E) + 2 * E * V), "float32")
-    out["e"] = dict(times, step_bound_ms=step_bound, step_bound_by=step_by,
-                    loop_bound_ms=loop_bound, loop_bound_by=loop_by,
-                    loop_rows_steps=steps_run)
-    print(f"[time] resnet bounds: step at N={B_BEAM} {step_bound:.4f} ms ({step_by}); "
-          f"greedy loop at B={B}, V={V}, {steps_run} row-steps {loop_bound:.4f} ms "
-          f"({loop_by})", flush=True)
-    kernels = [
-        {"name": f"decoder_step_L{L}_D{D}", "route": "cuda",
-         "source": "sat_tpu_torch/csrc/decoder_step.cu",
-         "replaces": "sat_tpu/kernels/decoder_step.py:72",
-         "launches": launches["decoder_step"], "rows": B_BEAM,
-         "max_abs_err": max(errs[B_BEAM].values()),
-         "ms": times["decoder_step_192"]["ms"],
-         "plain_ms": times["decoder_step_192_plain"]["ms"],
-         "bound_ms": step_bound, "bound_by": step_by, "library_ms": None},
-        {"name": f"greedy_loop_L{L}_D{D}_V{V}", "route": "cuda",
-         "source": "sat_tpu_torch/csrc/greedy_loop.cu",
-         "replaces": "sat_tpu/kernels/greedy_loop.py:42",
-         "launches": launches["greedy_loop"], "rows": B, "max_abs_err": loop_err,
-         "ms": times["greedy_loop"]["ms"], "plain_ms": times["greedy_loop_plain"]["ms"],
-         "bound_ms": loop_bound, "bound_by": loop_by, "library_ms": None},
-    ]
-    out["kernels"] = kernels
+        aug, g = TT.build_train_augment(c), torch.Generator(dev).manual_seed(0)
+        extra[f"augment {label}"] = lambda aug=aug, g=g: aug(g, u64)
+    run = main_path_and_times(model, imgs192[:B], kc, out["c"], card, "resnet", extra)
+    out.update(launches=run["launches"], kernels=run["kernels"], e=dict(run["times"], **run["bounds"]))
     shutil.rmtree(tmp, ignore_errors=True)
-    stamps["end"] = time.perf_counter()
-    names = list(stamps)
-    out["seconds"] = {a: stamps[b] - stamps[a] for a, b in zip(names, names[1:])}
-    print("[time] seconds per part of phase 13: " + ", ".join(
-        f"{k} {v:.1f}" for k, v in out["seconds"].items()), flush=True)
+    out["seconds"] = phase_seconds(stamps, 13)
+    return out
+
+
+def mobilenet_phase(dev, js, card):
+    """Phase 14: ``BASELINE.json``'s first configuration (module
+    docstring); ``js`` is phase 9's dataset."""
+    import torch
+    from sat_tpu_torch.models.model import SATModel
+    from sat_tpu_torch.train.checkpoints import read_checkpoint_config
+
+    out, stamps = {}, {"a encoders": time.perf_counter()}
+    # (a) the seven inverted-residual encoders, card against CPU, eval and train
+    out["a_encoders"] = encoders_card_vs_cpu(MOBILE_ARCHS, dev, MOBILE_PX, 21, 70,
+                                             "mobilenet (a)")
+    # mobilenet_v3_small in bf16, cast as serve casts the model
+    enc = seeded_encoder(MOBILE_ARCH, 77, dev, MOBILE_PX).eval()
+    x = torch.from_numpy(scenes(B_ENC, MOBILE_PX, seed=23))
+    with torch.no_grad():
+        f32 = enc.cpu()(x)
+        enc = enc.to(torch.bfloat16)
+        ref = enc(x.to(torch.bfloat16))
+        got = enc.to(dev)(x.to(dev, torch.bfloat16)).cpu()
+    rel = lambda a, b: ((a.float() - b.float()).norm() / b.float().norm()).item()
+    top_ulp = 2.0 ** (np.floor(np.log2(ref.float().abs().max().item())) - 7)
+    bf16 = {"card_vs_cpu": rel(got, ref), "cpu_bf16_vs_f32": rel(ref, f32),
+            "card_vs_cpu_max_abs": (got.float() - ref.float()).abs().max().item(),
+            "top_ulp": float(top_ulp)}
+    print(f"[mobilenet (a)] {MOBILE_ARCH} in bf16 at B={B_ENC}, card against CPU: relative "
+          f"Frobenius gap {bf16['card_vs_cpu']:.3e}, max abs {bf16['card_vs_cpu_max_abs']:.3g} "
+          f"({bf16['card_vs_cpu_max_abs'] / top_ulp:.2f} bf16 ulps of the largest value); "
+          f"the CPU's bf16 against its f32 {bf16['cpu_bf16_vs_f32']:.3e}", flush=True)
+    check(got.dtype == torch.bfloat16 and got.shape == ref.shape and torch.isfinite(got).all(),
+          "mobilenet (a): bf16 annotations, type, shape, finite")
+    # the two bf16 runs differ where a float32 sum (cuDNN's, oneDNN's) lands
+    # on the other side of a bf16 rounding, and the difference travels on
+    # through the blocks: an H100 measured 2^-7 (PERF.md)
+    check(bf16["card_vs_cpu_max_abs"] <= 4 * top_ulp,
+          f"mobilenet (a): bf16 card within 4 bf16 ulps of the CPU's ({bf16})")
+    out["a_bf16"] = bf16
+
+    # (a) the decode kernels at L 49, D 576 (V 4096), and the step at D 960, 1280
+    stamps["a kernels"] = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="sat_mobilenet_")
+    weights = os.path.join(tmp, f"{MOBILE_ARCH}_torchvision.pt")
+    n_keys = write_torchvision_weights(MOBILE_ARCH, MOBILE_PX, weights, 80, dev)
+    vcfg = vocab_config(V_REF, MOBILE_ARCH, MOBILE_PX, None, MOBILE_D).replace(
+        pretrained=True, pretrained_weights=weights)
+    ref_model = SATModel.create(vcfg, torch.Generator(dev).manual_seed(81)).eval()
+    imgs192 = torch.from_numpy(scenes(B_BEAM, MOBILE_PX, seed=22)).to(dev)
+    kc = decode_kernel_checks(ref_model, imgs192, (B, B_BEAM), "mobilenet (a)")
+    check((kc["L"], kc["D"]) == ((MOBILE_PX // 32) ** 2, MOBILE_D),
+          f"mobilenet (a): annotations {kc['L']} x {kc['D']}")
+    out["plans"] = kc["plans"]
+    out["a_kernels"] = {"step_err": kc["step_err"], "loop_agreement": kc["loop"][0],
+                        "loop_err": kc["loop"][1], "loop_agreement_bf16": kc["loop_bf16"][0],
+                        "loop_err_bf16": kc["loop_bf16"][1]}
+    for i, (arch, d) in enumerate(MOBILE_WIDE):
+        m = SATModel.create(vocab_config(V_REF, arch, MOBILE_PX, None, d),
+                            torch.Generator(dev).manual_seed(82 + i)).eval()
+        wk = decode_kernel_checks(m, imgs192, (B_BEAM,), f"mobilenet (a) {arch}", loop=False)
+        check(wk["D"] == d, f"mobilenet (a): {arch} D {wk['D']}")
+        out["a_kernels"][f"step_err_D{d}"] = wk["step_err"]
+        del m, wk
+
+    # (b) training steps with the encoder finetuned from step 1
+    stamps["b train"] = time.perf_counter()
+    header = read_checkpoint_config(CKPT)
+    cfg14 = header.replace(precision=32, device_resident_data=False, resume=None, json=None,
+                           input_size=MOBILE_PX, batch=B_TRAIN, encoder_arch=MOBILE_ARCH,
+                           encoder_size=None, encoder_dim=None, pretrained=True,
+                           pretrained_weights=weights, encoder_finetune_after=1)
+    check(cfg14.encoder_lr > 0, "mobilenet (b): the encoder trains")
+    out["b"] = steps_card_vs_cpu(
+        cfg14.replace(opt="sgd", momentum=0.0, decoder_tf="always", dropout=0.0,
+                      embedding_dropout=0.0, batch=B_TRAIN_CHECK), dev, 90, "mobilenet (b)")
+    out["b"].update(steps_on_one_batch(cfg14, js, os.path.join(tmp, "b"), dev, "mobilenet (b)"))
+
+    # (c) the training CLI, serve and the Lightning file
+    stamps["c cli"] = time.perf_counter()
+    out["c"], model = cli_serve_lightning(cfg14, js, tmp, MOBILE_EPOCHS, n_keys, dev,
+                                        "mobilenet (c)")
+    check(model.grid_hw == (MOBILE_PX // 32,) * 2, f"mobilenet (c): grid {model.grid_hw}")
+
+    # the slice's main path, counted, and (d) times
+    stamps["main path, d times"] = time.perf_counter()
+    run = main_path_and_times(model, imgs192[:B], kc, out["b"], card, "mobilenet")
+    out.update(launches=run["launches"], kernels=run["kernels"], d=dict(run["times"], **run["bounds"]))
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = phase_seconds(stamps, 14)
     return out
 
 
@@ -2487,6 +2706,10 @@ def main():
         stamps["resnet"] = time.perf_counter()
         report["resnet"] = resnet_phase(dev, report["fit"]["json"], card)
         kernels += report["resnet"]["kernels"]
+        # -- 14. BASELINE.json's first configuration: mobilenet_v3_small ---------------
+        stamps["mobilenet"] = time.perf_counter()
+        report["mobilenet"] = mobilenet_phase(dev, report["fit"]["json"], card)
+        kernels += report["mobilenet"]["kernels"]
     kernels[0].update(launches_serve=report["serve"]["a"]["step_calls"],
                       launches_evaluate=report["serve"]["d"]["step_calls"],
                       launches_resumed_fit=report["resume"]["b_step_calls"])

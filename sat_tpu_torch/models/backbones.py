@@ -1,25 +1,27 @@
-"""The ResNet family and ShuffleNetV2 backbones of
-``sat_tpu/models/backbones.py`` as torch modules.
+"""The ResNet family, ShuffleNetV2, MobileNetV2 / V3 and MNASNet backbones
+of ``sat_tpu/models/backbones.py`` as torch modules.
 
 Submodule names follow the JAX parameter paths (``conv1``, ``bn1``,
 ``layer2_0.conv3``, ``layer2_0.down_bn``, ``stage2_0.b1_dw``, ``conv5``,
-...) so ``models/jax_import.py`` can map the flax weights by name.  The
-modules run NCHW, PyTorch's layout; the encoder converts at its boundary.
-BatchNorm follows flax's (``BatchNorm`` below), in eval and in train mode.
-``BACKBONES`` holds the 13 archs ported so far: resnet18/34/50/101/152,
-resnext50_32x4d, resnext101_32x8d, wide_resnet50_2, wide_resnet101_2 and
-the four shufflenet_v2_*; the other encoders of ``config.ENCODER_ARCHS``
-(DenseNet, MobileNet, MNASNet, SqueezeNet) raise ``unported`` (``ROADMAP.md``
-§1 item 7).
+``stem``, ``stem_bn``, ``block3.expand``, ``block3.dw_bn``,
+``block3.se_fc1``, ``sep_pw``, ``head_bn``, ...) so ``models/jax_import.py``
+can map the flax weights by name.  The modules run NCHW, PyTorch's layout;
+the encoder converts at its boundary.  BatchNorm follows flax's
+(``BatchNorm`` below), in eval and in train mode.  ``BACKBONES`` holds the
+20 archs ported so far: resnet18/34/50/101/152, resnext50_32x4d,
+resnext101_32x8d, wide_resnet50_2, wide_resnet101_2, the four
+shufflenet_v2_*, mobilenet_v2, mobilenet_v3_large, mobilenet_v3_small and
+mnasnet0_5/0_75/1_0/1_3; the other encoders of ``config.ENCODER_ARCHS``
+(DenseNet, SqueezeNet) raise ``unported`` (``ROADMAP.md`` §1 item 7).
 
-The JAX package folds the input normalisation into ``conv1``
+The JAX package folds the input normalisation into the stem conv
 (``FoldedStemConv``) and permutes channels to avoid TPU relayouts
 (``models/shufflenet_folded.py``, ``models/packed_stem.py``).  Those are the
-same math as normalise -> conv1, which is what runs here."""
+same math as normalise -> stem conv, which is what runs here."""
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -243,17 +245,202 @@ RESNET_ARCHS: Dict[str, Tuple[Sequence[int], bool, int, int]] = {
     "wide_resnet101_2": ((3, 4, 23, 3), True, 1, 128),
 }
 
+
+def hswish(x: torch.Tensor) -> torch.Tensor:
+    """JAX's ``x * relu6(x + 3) / 6``, not ``F.hardswish``, as XLA compiles
+    it: the division by 6 is a product with float32's 1/6, and under bf16
+    each operation rounds (bit for bit with JAX's jitted function on the
+    CPU, ``tests/test_torch_mobilenet.py``)."""
+    return x * F.relu6(x + 3.0) * (1.0 / 6.0)
+
+
+def hsigmoid(x: torch.Tensor) -> torch.Tensor:
+    """JAX's ``relu6(x + 3) / 6``, compiled as ``hswish``."""
+    return F.relu6(x + 3.0) * (1.0 / 6.0)
+
+
+def _make_divisible(v: float) -> int:
+    """``v`` rounded to a multiple of 8, at least 8, and up where rounding
+    loses more than 10 %: JAX's ``_make_divisible`` and ``_round8``."""
+    new_v = max(8, int(v + 4) // 8 * 8)
+    if new_v < 0.9 * v:
+        new_v += 8
+    return new_v
+
+
+class InvertedResidual(nn.Module):
+    """1 x 1 ``expand`` to ``hidden`` channels (where the ratio is not 1, or
+    for MobileNetV3 where the width changes), a k x k depthwise ``dw`` at
+    ``stride``, optional squeeze-excite (``se_fc1`` -> ReLU -> ``se_fc2`` ->
+    hard-sigmoid, on the mean over H and W), a 1 x 1 ``project``; the
+    input added where the stride is 1 and the width stays.  JAX's
+    ``InvertedResidual`` (MobileNetV2, MNASNet) and ``MobileNetV3Block``
+    are this block with ``hidden`` given."""
+
+    def __init__(self, cin: int, out: int, stride: int, hidden: int,
+                 kernel: int = 3, use_se: bool = False,
+                 act: Callable[[torch.Tensor], torch.Tensor] = F.relu6):
+        super().__init__()
+        self.act = act
+        self.use_res = stride == 1 and cin == out
+        if hidden != cin:
+            self.expand = _conv(cin, hidden, 1)
+            self.expand_bn = _bn(hidden)
+        self.dw = _conv(hidden, hidden, kernel, stride, groups=hidden)
+        self.dw_bn = _bn(hidden)
+        if use_se:
+            se = _make_divisible(hidden // 4)
+            self.se_fc1 = nn.Conv2d(hidden, se, 1)
+            self.se_fc2 = nn.Conv2d(se, hidden, 1)
+        self.project = _conv(hidden, out, 1)
+        self.project_bn = _bn(out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x
+        if hasattr(self, "expand"):
+            y = self.act(self.expand_bn(self.expand(y)))
+        y = self.act(self.dw_bn(self.dw(y)))
+        if hasattr(self, "se_fc1"):
+            # a bf16 mean sums in float32 and rounds once, as jnp.mean
+            s = y.mean(dim=(2, 3), keepdim=True)
+            s = self.se_fc2(F.relu(self.se_fc1(s)))
+            y = y * hsigmoid(s)
+        y = self.project_bn(self.project(y))
+        return x + y if self.use_res else y
+
+
+class _Blocks(nn.Module):
+    """The 3 x 3 / 2 ``stem`` (padding 1) -> BN -> ``act``, ``block{i}`` in
+    order, the 1 x 1 ``head`` -> BN -> ``act``."""
+
+    def __init__(self, stem: int, act: Callable[[torch.Tensor], torch.Tensor]):
+        super().__init__()
+        self.stem = _conv(3, stem, 3, 2)
+        self.stem_bn = _bn(stem)
+        self.act = act
+
+    def _finish(self, cin: int, head: int) -> None:
+        self.block_names = [n for n, _ in self.named_children()
+                            if n.startswith("block")]
+        self.head = _conv(cin, head, 1)
+        self.head_bn = _bn(head)
+        self.out_channels = head
+
+    def _after_stem(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, 3, H, W), already normalised -> (B, C, H/32, W/32)."""
+        x = self._after_stem(self.act(self.stem_bn(self.stem(x))))
+        for name in self.block_names:
+            x = getattr(self, name)(x)
+        return self.act(self.head_bn(self.head(x)))
+
+
+# (expand ratio, out, repeats, stride) of JAX's MobileNetV2.settings
+_MBV2 = ((1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2),
+         (6, 96, 3, 1), (6, 160, 3, 2), (6, 320, 1, 1))
+
+
+class MobileNetV2(_Blocks):
+    """Stem 32 -> 17 inverted residuals (ReLU6) -> head 1280 -> ReLU6."""
+
+    def __init__(self):
+        super().__init__(32, F.relu6)
+        cin, idx = 32, 0
+        for t, ch, n, s in _MBV2:
+            for j in range(n):
+                hidden = _make_divisible(cin * t) if t != 1 else cin
+                self.add_module(f"block{idx}", InvertedResidual(
+                    cin, ch, s if j == 0 else 1, hidden))
+                cin, idx = ch, idx + 1
+        self._finish(cin, 1280)
+
+
+# (kernel, expanded, out, SE, hard-swish, stride) of JAX's tables
+_MBV3_LARGE = (
+    (3, 16, 16, False, False, 1), (3, 64, 24, False, False, 2),
+    (3, 72, 24, False, False, 1), (5, 72, 40, True, False, 2),
+    (5, 120, 40, True, False, 1), (5, 120, 40, True, False, 1),
+    (3, 240, 80, False, True, 2), (3, 200, 80, False, True, 1),
+    (3, 184, 80, False, True, 1), (3, 184, 80, False, True, 1),
+    (3, 480, 112, True, True, 1), (3, 672, 112, True, True, 1),
+    (5, 672, 160, True, True, 2), (5, 960, 160, True, True, 1),
+    (5, 960, 160, True, True, 1))
+_MBV3_SMALL = (
+    (3, 16, 16, True, False, 2), (3, 72, 24, False, False, 2),
+    (3, 88, 24, False, False, 1), (5, 96, 40, True, True, 2),
+    (5, 240, 40, True, True, 1), (5, 240, 40, True, True, 1),
+    (5, 120, 48, True, True, 1), (5, 144, 48, True, True, 1),
+    (5, 288, 96, True, True, 2), (5, 576, 96, True, True, 1),
+    (5, 576, 96, True, True, 1))
+
+
+class MobileNetV3(_Blocks):
+    """Stem 16 -> hard-swish, the table's blocks (ReLU or hard-swish, SE
+    where marked), head ``last`` (960 large, 576 small) -> hard-swish."""
+
+    def __init__(self, settings: Sequence[Tuple[int, int, int, bool, bool, int]],
+                 last: int):
+        super().__init__(16, hswish)
+        cin = 16
+        for i, (k, e, c, se, hs, s) in enumerate(settings):
+            self.add_module(f"block{i}", InvertedResidual(
+                cin, c, s, e, k, se, hswish if hs else F.relu))
+            cin = c
+        self._finish(cin, last)
+
+
+class MNASNet(_Blocks):
+    """Stem -> ReLU, the separable ``sep_dw`` -> BN -> ReLU -> ``sep_pw``
+    -> BN, six stacks of inverted residuals (ReLU, kernels 3 and 5), head
+    1280 -> ReLU; widths ``d * alpha`` rounded as JAX's ``_round8`` (which
+    is ``_make_divisible``)."""
+
+    def __init__(self, alpha: float):
+        d = [_make_divisible(v * alpha) for v in (32, 16, 24, 40, 80, 96, 192, 320)]
+        super().__init__(d[0], F.relu)
+        self.sep_dw = _conv(d[0], d[0], 3, groups=d[0])
+        self.sep_dw_bn = _bn(d[0])
+        self.sep_pw = _conv(d[0], d[1], 1)
+        self.sep_pw_bn = _bn(d[1])
+        cin, idx = d[1], 0
+        # (expand ratio, kernel, out, repeats, stride)
+        for t, k, ch, n, s in ((3, 3, d[2], 3, 2), (3, 5, d[3], 3, 2),
+                               (6, 5, d[4], 3, 2), (6, 3, d[5], 2, 1),
+                               (6, 5, d[6], 4, 2), (6, 3, d[7], 1, 1)):
+            for j in range(n):
+                self.add_module(f"block{idx}", InvertedResidual(
+                    cin, ch, s if j == 0 else 1, _make_divisible(cin * t), k,
+                    act=F.relu))
+                cin, idx = ch, idx + 1
+        self._finish(cin, 1280)
+
+    def _after_stem(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self.sep_dw_bn(self.sep_dw(x)))
+        return self.sep_pw_bn(self.sep_pw(x))
+
+
 BACKBONES = {name: (lambda a=a: ResNet(*a)) for name, a in RESNET_ARCHS.items()}
 BACKBONES.update({name: (lambda st=st: ShuffleNetV2(st))
                   for name, st in _STAGES.items()})
+BACKBONES.update({
+    "mobilenet_v2": MobileNetV2,
+    "mobilenet_v3_large": lambda: MobileNetV3(_MBV3_LARGE, 960),
+    "mobilenet_v3_small": lambda: MobileNetV3(_MBV3_SMALL, 576),
+})
+MNASNET_ALPHAS = {"mnasnet0_5": 0.5, "mnasnet0_75": 0.75, "mnasnet1_0": 1.0,
+                  "mnasnet1_3": 1.3}
+BACKBONES.update({name: (lambda a=a: MNASNet(a)) for name, a in MNASNET_ALPHAS.items()})
 
 
 def unported(arch: str) -> NotImplementedError:
     """The error of an encoder of ``config.ENCODER_ARCHS`` not ported yet."""
     return NotImplementedError(
         f"{arch}: the port runs the ResNet family (resnet*, resnext*, "
-        "wide_resnet*) and shufflenet_v2_*; the other encoders and their "
-        "weight converters are ROADMAP.md §1 item 7")
+        "wide_resnet*), shufflenet_v2_*, mobilenet_v2, mobilenet_v3_* and "
+        "mnasnet*; DenseNet and SqueezeNet and their weight converters are "
+        "ROADMAP.md §1 item 7")
 
 
 @torch.no_grad()

@@ -27,7 +27,8 @@ import torch
 
 from ..config import SATConfig
 from .lightning_import import _CHILD_MAPS, _family
-from .torch_import import _RESNET, SHUFFLENET_ARCHS, unported
+from .backbones import MNASNET_ALPHAS
+from .torch_import import _RESNET, MBV3_N, MNASNET_STACKS, SHUFFLENET_ARCHS, unported
 
 
 def _host(tree: Any) -> Any:
@@ -108,15 +109,88 @@ def _export_shufflenet(t: _Inv) -> None:
     t.bn("bn5", "conv5.1")
 
 
+def _export_mobilenet_v2(t: _Inv) -> None:
+    t.conv("stem", "features.0.0")
+    t.bn("stem_bn", "features.0.1")
+    for feat in range(1, 18):
+        tp, blk = f"features.{feat}.conv", t.sub(f"block{feat-1}")
+        if "expand" in blk.params:
+            blk.conv("expand", f"{tp}.0.0")
+            blk.bn("expand_bn", f"{tp}.0.1")
+            blk.conv("dw", f"{tp}.1.0")
+            blk.bn("dw_bn", f"{tp}.1.1")
+            blk.conv("project", f"{tp}.2")
+            blk.bn("project_bn", f"{tp}.3")
+        else:
+            blk.conv("dw", f"{tp}.0.0")
+            blk.bn("dw_bn", f"{tp}.0.1")
+            blk.conv("project", f"{tp}.1")
+            blk.bn("project_bn", f"{tp}.2")
+    t.conv("head", "features.18.0")
+    t.bn("head_bn", "features.18.1")
+
+
+def _export_mobilenet_v3(t: _Inv, n_blocks: int) -> None:
+    t.conv("stem", "features.0.0")
+    t.bn("stem_bn", "features.0.1")
+    for i in range(n_blocks):
+        tp, blk = f"features.{i+1}.block", t.sub(f"block{i}")
+        pos = 0
+        if "expand" in blk.params:
+            blk.conv("expand", f"{tp}.{pos}.0")
+            blk.bn("expand_bn", f"{tp}.{pos}.1")
+            pos += 1
+        blk.conv("dw", f"{tp}.{pos}.0")
+        blk.bn("dw_bn", f"{tp}.{pos}.1")
+        pos += 1
+        if "se_fc1" in blk.params:
+            blk.conv("se_fc1", f"{tp}.{pos}.fc1")
+            blk.conv("se_fc2", f"{tp}.{pos}.fc2")
+            pos += 1
+        blk.conv("project", f"{tp}.{pos}.0")
+        blk.bn("project_bn", f"{tp}.{pos}.1")
+    t.conv("head", f"features.{n_blocks+1}.0")
+    t.bn("head_bn", f"features.{n_blocks+1}.1")
+
+
+def _export_mnasnet(t: _Inv) -> None:
+    t.conv("stem", "layers.0")
+    t.bn("stem_bn", "layers.1")
+    t.conv("sep_dw", "layers.3")
+    t.bn("sep_dw_bn", "layers.4")
+    t.conv("sep_pw", "layers.6")
+    t.bn("sep_pw_bn", "layers.7")
+    idx = 0
+    for stack, n in zip(range(8, 14), MNASNET_STACKS):
+        for j in range(n):
+            tp, blk = f"layers.{stack}.{j}.layers", t.sub(f"block{idx}")
+            blk.conv("expand", f"{tp}.0")
+            blk.bn("expand_bn", f"{tp}.1")
+            blk.conv("dw", f"{tp}.3")
+            blk.bn("dw_bn", f"{tp}.4")
+            blk.conv("project", f"{tp}.6")
+            blk.bn("project_bn", f"{tp}.7")
+            idx += 1
+    t.conv("head", "layers.14")
+    t.bn("head_bn", "layers.15")
+
+
 def export_backbone(arch: str, params: Dict, stats: Optional[Dict]
                     ) -> Dict[str, np.ndarray]:
     """Flax backbone (params, batch_stats) -> torchvision-keyed state_dict;
     the exact inverse of ``torch_import.convert_backbone``."""
     sd: Dict[str, np.ndarray] = {}
+    t = _Inv(sd, params, stats)
     if arch in _RESNET:
-        _export_resnet(_Inv(sd, params, stats), *_RESNET[arch])
+        _export_resnet(t, *_RESNET[arch])
     elif arch in SHUFFLENET_ARCHS:
-        _export_shufflenet(_Inv(sd, params, stats))
+        _export_shufflenet(t)
+    elif arch == "mobilenet_v2":
+        _export_mobilenet_v2(t)
+    elif arch in MBV3_N:
+        _export_mobilenet_v3(t, MBV3_N[arch])
+    elif arch in MNASNET_ALPHAS:
+        _export_mnasnet(t)
     else:
         raise unported(arch)
     return sd

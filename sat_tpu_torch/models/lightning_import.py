@@ -19,8 +19,10 @@ Encoder mapping: the reference encoder is ``nn.Sequential(Normalize,
 *backbone_children[, proj_conv])`` (model.py:59-62); the ``encoder.<idx>.*``
 keys go back to torchvision's key layout and through
 ``models/torch_import.py``'s converters: the nine ResNet-family tables
-(``resnet`` children 1, 2, 5-8 after Normalize) and the four
-``shufflenet_v2_*`` ones; the other encoders raise, ``ROADMAP.md`` §1 item 7.
+(``resnet`` children 1, 2, 5-8 after Normalize), the four
+``shufflenet_v2_*`` ones, ``mobilenet_v2`` and both ``mobilenet_v3_*``
+(child 1, ``features``) and the four ``mnasnet*`` (child 1, ``layers``);
+DenseNet and SqueezeNet raise, ``ROADMAP.md`` §1 item 7.
 
     python -m sat_tpu_torch.models.lightning_import --input ref.ckpt \\
         --output sat.ckpt

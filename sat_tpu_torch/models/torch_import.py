@@ -1,7 +1,9 @@
 """Offline torchvision weight import, ported from
 ``sat_tpu/models/torch_import.py`` for the nine ResNet-family tables
 (resnet18/34/50/101/152, resnext50_32x4d, resnext101_32x8d,
-wide_resnet50_2, wide_resnet101_2) and the four ``shufflenet_v2_*`` tables.
+wide_resnet50_2, wide_resnet101_2), the four ``shufflenet_v2_*`` tables,
+``mobilenet_v2``, ``mobilenet_v3_large``, ``mobilenet_v3_small`` and the four
+``mnasnet*`` tables.
 
 A saved torchvision ``state_dict`` (``.pt``/``.pth`` or an ``.npz`` with the
 same keys) is converted, as in the JAX package, into the flax-layout tree of
@@ -12,9 +14,9 @@ kernels ``HWIO``, BatchNorm ``scale``/``bias`` and running ``mean``/``var``.
 port's modules: the conversion is the JAX package's, the loading is the one
 every checkpoint takes.
 
-The other encoders' converters (DenseNet, MobileNet, MNASNet, SqueezeNet)
-come with those encoders (``ROADMAP.md`` §1 item 7); ``convert_backbone``
-raises ``NotImplementedError`` for them."""
+The DenseNet and SqueezeNet converters come with those encoders
+(``ROADMAP.md`` §1 item 7); ``convert_backbone`` raises
+``NotImplementedError`` for them."""
 
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 
-from .backbones import RESNET_ARCHS, unported
+from .backbones import _MBV3_LARGE, _MBV3_SMALL, MNASNET_ALPHAS, RESNET_ARCHS, unported
 
 SHUFFLENET_ARCHS = ("shufflenet_v2_x0_5", "shufflenet_v2_x1_0",
                     "shufflenet_v2_x1_5", "shufflenet_v2_x2_0")
@@ -122,17 +124,120 @@ def convert_shufflenet(sd: Dict[str, Any]) -> Tuple[Dict, Dict]:
     return t.params, t.stats
 
 
+def convert_mobilenet_v2(sd: Dict[str, Any]) -> Tuple[Dict, Dict]:
+    t = _Tree()
+    t.conv("stem", sd, "features.0.0")
+    t.bn("stem_bn", sd, "features.0.1")
+    for idx, feat in enumerate(range(1, 18)):
+        tp = f"features.{feat}.conv"
+        blk = _Tree()
+        if f"{tp}.0.0.weight" in sd and f"{tp}.1.0.weight" in sd:
+            # expand(0) + dw(1) + project(2,3)
+            blk.conv("expand", sd, f"{tp}.0.0")
+            blk.bn("expand_bn", sd, f"{tp}.0.1")
+            blk.conv("dw", sd, f"{tp}.1.0")
+            blk.bn("dw_bn", sd, f"{tp}.1.1")
+            blk.conv("project", sd, f"{tp}.2")
+            blk.bn("project_bn", sd, f"{tp}.3")
+        else:
+            # first block (t=1): dw(0) + project(1,2)
+            blk.conv("dw", sd, f"{tp}.0.0")
+            blk.bn("dw_bn", sd, f"{tp}.0.1")
+            blk.conv("project", sd, f"{tp}.1")
+            blk.bn("project_bn", sd, f"{tp}.2")
+        t.params[f"block{idx}"] = blk.params
+        t.stats[f"block{idx}"] = blk.stats
+    t.conv("head", sd, "features.18.0")
+    t.bn("head_bn", sd, "features.18.1")
+    return t.params, t.stats
+
+
+def convert_mobilenet_v3(sd: Dict[str, Any], n_blocks: int) -> Tuple[Dict, Dict]:
+    t = _Tree()
+    t.conv("stem", sd, "features.0.0")
+    t.bn("stem_bn", sd, "features.0.1")
+    for i in range(n_blocks):
+        tp = f"features.{i+1}.block"
+        blk = _Tree()
+        # torchvision block layout: [expand?][dw][se?][project]; each
+        # Conv2dNormActivation is .0 (conv) + .1 (bn); the expand is there
+        # where the block has more sub-layers than dw, SE and project
+        sub_keys = [k for k in sd if k.startswith(tp + ".")]
+        n_sub = 1 + max(int(k[len(tp) + 1:].split(".")[0]) for k in sub_keys)
+        has_se = any(".fc1." in k for k in sub_keys)
+        pos = 0
+        if n_sub > 2 + has_se:
+            blk.conv("expand", sd, f"{tp}.{pos}.0")
+            blk.bn("expand_bn", sd, f"{tp}.{pos}.1")
+            pos += 1
+        blk.conv("dw", sd, f"{tp}.{pos}.0")
+        blk.bn("dw_bn", sd, f"{tp}.{pos}.1")
+        pos += 1
+        if has_se:
+            blk.conv("se_fc1", sd, f"{tp}.{pos}.fc1")
+            blk.conv("se_fc2", sd, f"{tp}.{pos}.fc2")
+            pos += 1
+        blk.conv("project", sd, f"{tp}.{pos}.0")
+        blk.bn("project_bn", sd, f"{tp}.{pos}.1")
+        t.params[f"block{i}"] = blk.params
+        t.stats[f"block{i}"] = blk.stats
+    t.conv("head", sd, f"features.{n_blocks+1}.0")
+    t.bn("head_bn", sd, f"features.{n_blocks+1}.1")
+    return t.params, t.stats
+
+
+# the inverted residuals of each of MNASNet's six stacks
+MNASNET_STACKS = (3, 3, 3, 2, 4, 1)
+
+
+def convert_mnasnet(sd: Dict[str, Any]) -> Tuple[Dict, Dict]:
+    t = _Tree()
+    t.conv("stem", sd, "layers.0")
+    t.bn("stem_bn", sd, "layers.1")
+    t.conv("sep_dw", sd, "layers.3")
+    t.bn("sep_dw_bn", sd, "layers.4")
+    t.conv("sep_pw", sd, "layers.6")
+    t.bn("sep_pw_bn", sd, "layers.7")
+    idx = 0
+    for stack, n in zip(range(8, 14), MNASNET_STACKS):
+        for j in range(n):
+            tp = f"layers.{stack}.{j}.layers"
+            blk = _Tree()
+            blk.conv("expand", sd, f"{tp}.0")
+            blk.bn("expand_bn", sd, f"{tp}.1")
+            blk.conv("dw", sd, f"{tp}.3")
+            blk.bn("dw_bn", sd, f"{tp}.4")
+            blk.conv("project", sd, f"{tp}.6")
+            blk.bn("project_bn", sd, f"{tp}.7")
+            t.params[f"block{idx}"] = blk.params
+            t.stats[f"block{idx}"] = blk.stats
+            idx += 1
+    t.conv("head", sd, "layers.14")
+    t.bn("head_bn", sd, "layers.15")
+    return t.params, t.stats
+
+
+# blocks of each MobileNetV3 table
+MBV3_N = {"mobilenet_v3_large": len(_MBV3_LARGE), "mobilenet_v3_small": len(_MBV3_SMALL)}
+
+
 def convert_backbone(arch: str, state_dict: Dict[str, Any]) -> Tuple[Dict, Dict]:
     """torchvision state_dict -> (backbone params, backbone batch_stats).
     Classifier-head keys are ignored (the reference strips them,
     model.py:29-41)."""
-    if arch not in _RESNET and arch not in SHUFFLENET_ARCHS:
-        raise unported(arch)
     sd = {k: v for k, v in state_dict.items()
           if not k.startswith(("fc.", "classifier."))}
     if arch in _RESNET:
         return convert_resnet(sd, *_RESNET[arch])
-    return convert_shufflenet(sd)
+    if arch in SHUFFLENET_ARCHS:
+        return convert_shufflenet(sd)
+    if arch == "mobilenet_v2":
+        return convert_mobilenet_v2(sd)
+    if arch in MBV3_N:
+        return convert_mobilenet_v3(sd, MBV3_N[arch])
+    if arch in MNASNET_ALPHAS:
+        return convert_mnasnet(sd)
+    raise unported(arch)
 
 
 def load_state_dict(path: str) -> Dict[str, np.ndarray]:

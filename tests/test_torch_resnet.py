@@ -240,9 +240,9 @@ def test_import_pretrained_matches_jax(arch, tmp_path):
 
 @pytest.mark.parametrize("arch", UNPORTED)
 def test_unported_encoders_raise(arch):
-    """The 13 encoders of other families stop with item 7 wherever a user
+    """The 6 encoders of other families stop with item 7 wherever a user
     meets them: the encoder, the converter and the exporter."""
-    assert len(UNPORTED) == 13 and len(BACKBONES) == 13
+    assert len(UNPORTED) == 6 and len(BACKBONES) == 20
     for call in (lambda: SATEncoder(arch),
                  lambda: TT.convert_backbone(arch, {}),
                  lambda: TE.export_backbone(arch, {}, {})):
