@@ -174,6 +174,29 @@ Phases, each of which fails the run (nonzero exit, no result line):
    and beam captioning: ms, busy ms and idle share, and both kernels'
    bounds (two more entries of the ``kernels`` line).
 
+15. the densenet121 configuration: densenet121 at 224 px, its native 7 x 7
+   map (L 49, D 1024, no ``proj``), the default decoder widths, the
+   header's settings at f32 with the encoder finetuned from step 1,
+   encoder weights from a seeded torchvision-layout state_dict written by
+   the port's exporter (``--pretrained_weights``); squeezenet1_1 (no
+   BatchNorm, its native 13 x 13 map: L 169, D 512) beside it: (a) the six
+   SqueezeNet and DenseNet encoders at B = 4, eval and train mode, card
+   against CPU as in 13 (a), and densenet121 in bf16 as in 14 (a); both
+   decode kernels against their plain versions at L 49, D 1024 and at L
+   169, D 512 (V 4096), the step at N 64 and 192 and the loop at B 64, f32
+   and bf16, and the step at N 192 at D 1664, 1920 and 2208 (densenet169,
+   201, 161), where the last 256-wide slice of ``attend`` is partial; (b)
+   as 14 (b) at densenet121; (c) as 14 (c) for densenet121 (2 epochs) and
+   squeezenet1_1 (1 epoch: its empty ``batch_stats`` through the writer,
+   the Lightning file and the serve), and a ``Trainer`` resumed from
+   squeezenet1_1's ``last.ckpt`` with its weights bit for bit; the main
+   path counted at both; (d) encode, the step at N 192, the greedy loop,
+   greedy and beam captioning at both (four more entries of the
+   ``kernels`` line); (e) ``python -m sat_tpu_torch.evalx.encoder_sweep``
+   at its default bf16 over seven archs at batch 32 and 128, each row's
+   features and attention equal to ``probe_encoder``'s and its rates finite
+   and positive (the rates are printed, not gated).
+
 ``python3 chip_smoke.py --cpu-fit`` runs phase 9 (d) on the CPU and prints
 its losses as JSON.
 
@@ -256,6 +279,18 @@ MOBILE_ARCH, MOBILE_PX, MOBILE_D, MOBILE_EPOCHS = "mobilenet_v3_small", 224, 576
 MOBILE_ARCHS = ("mobilenet_v2", "mobilenet_v3_large", "mobilenet_v3_small", "mnasnet0_5",
                 "mnasnet0_75", "mnasnet1_0", "mnasnet1_3")
 MOBILE_WIDE = (("mobilenet_v3_large", 960), ("mobilenet_v2", 1280))
+# phase 15: the densenet121 configuration (224 px, its native 7 x 7 map: L 49,
+# D 1024), squeezenet1_1's native 13 x 13 map (L 169, D 512), the six
+# encoders, the step kernels' other widths (D 1664, 1920, 2208), the CLI's
+# epochs, and the encoder sweep's archs and batches
+DENSE_ARCH, DENSE_PX, DENSE_D, DENSE_EPOCHS = "densenet121", 224, 1024, 2
+SQUEEZE_ARCH, SQUEEZE_D = "squeezenet1_1", 512
+DENSE_ARCHS = ("squeezenet1_0", "squeezenet1_1", "densenet121", "densenet169",
+               "densenet201", "densenet161")
+DENSE_WIDE = (("densenet169", 1664), ("densenet201", 1920), ("densenet161", 2208))
+SWEEP_ARCHS = ("shufflenet_v2_x0_5", "mobilenet_v3_small", "squeezenet1_1", "resnet18",
+               "resnet50", "densenet121", "wide_resnet50_2")
+SWEEP_BATCHES = (32, 128)
 TRAIN_PARTS = ("input copy", "augment", "encoder", "decoder forward",
                "backward", "optimizer")
 
@@ -1716,7 +1751,7 @@ def write_torchvision_weights(arch, px, path, seed, device):
     from sat_tpu_torch.models.jax_import import encoder_to_jax
     from sat_tpu_torch.models.lightning_export import export_backbone
     params, stats = encoder_to_jax(seeded_encoder(arch, seed, device, px))
-    sd = export_backbone(arch, params["backbone"], stats["backbone"])
+    sd = export_backbone(arch, params["backbone"], stats.get("backbone"))
     torch.save({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}, path)
     return len(sd)
 
@@ -1762,11 +1797,14 @@ def encoders_card_vs_cpu(archs, dev, px, img_seed, w_seed, tag):
     18 to 152 layers), running statistics within rtol 1e-3.  Returns each
     arch's errors."""
     import torch
+    from sat_tpu_torch.config import SATConfig
+    from sat_tpu_torch.models.encoder import probe_encoder
     x = torch.from_numpy(scenes(B_ENC, px, seed=img_seed))
     enc_err = {}
     for i, arch in enumerate(archs):
         on_card = seeded_encoder(arch, w_seed + i, dev, px)
         on_cpu = copy.deepcopy(on_card).cpu()
+        d, (h, w) = probe_encoder(SATConfig(encoder_arch=arch, input_size=px))
         errs = {}
         for mode in ("eval", "train"):
             with torch.no_grad():
@@ -1774,15 +1812,16 @@ def encoders_card_vs_cpu(archs, dev, px, img_seed, w_seed, tag):
                 got = on_card.train(mode == "train")(x.to(dev)).cpu()
             scale = ref.abs().max().item()
             errs[mode] = (got - ref).abs().max().item() / max(1.0, scale)
-            check(got.shape == ref.shape == (B_ENC, (px // 32) ** 2, on_cpu.backbone.out_channels)
+            check(got.shape == ref.shape == (B_ENC, h * w, d)
                   and torch.isfinite(got).all(), f"{tag}: {arch} {mode} annotations")
-        bn = bn_stats_err(on_card, on_cpu, rtol=1e-3)
-        errs["bn_var"], errs["bn_mean"] = bn["var"]["err"], bn["mean"]["err"]
-        enc_err[arch] = errs
         check(errs["eval"] <= 1e-3 and errs["train"] <= 1e-3,
               f"{tag}: {arch} annotations within 1e-3 of their scale ({errs})")
-        check(bn["var"]["err"] <= 1 and bn["mean"]["err"] <= 1,
-              f"{tag}: {arch} running statistics within rtol 1e-3 ({bn})")
+        bn = bn_stats_err(on_card, on_cpu, rtol=1e-3)
+        if bn:    # squeezenet has no BatchNorm
+            errs["bn_var"], errs["bn_mean"] = bn["var"]["err"], bn["mean"]["err"]
+            check(bn["var"]["err"] <= 1 and bn["mean"]["err"] <= 1,
+                  f"{tag}: {arch} running statistics within rtol 1e-3 ({bn})")
+        enc_err[arch] = errs
         del on_cpu, on_card
     print(f"[{tag}] {len(archs)} encoders at B={B_ENC}, {px} px, card against "
           "CPU, max |diff| / max(1, max |ref|) in eval and train mode, and the running "
@@ -1790,6 +1829,38 @@ def encoders_card_vs_cpu(archs, dev, px, img_seed, w_seed, tag):
               f"{a} " + ", ".join(f"{k} {v:.1e}" for k, v in e.items())
               for a, e in enc_err.items()), flush=True)
     return enc_err
+
+
+def bf16_encoder_card_vs_cpu(arch, dev, px, w_seed, img_seed, tag):
+    """The seeded ``arch`` encoder in bf16 (the model cast as ``serve``
+    casts it) at B_ENC, card against CPU: within 4 bf16 ulps of the
+    largest value; the relative gaps, and the CPU's bf16 against its f32,
+    printed and returned."""
+    import torch
+    enc = seeded_encoder(arch, w_seed, dev, px).eval()
+    x = torch.from_numpy(scenes(B_ENC, px, seed=img_seed))
+    with torch.no_grad():
+        f32 = enc.cpu()(x)
+        enc = enc.to(torch.bfloat16)
+        ref = enc(x.to(torch.bfloat16))
+        got = enc.to(dev)(x.to(dev, torch.bfloat16)).cpu()
+    rel = lambda a, b: ((a.float() - b.float()).norm() / b.float().norm()).item()
+    top_ulp = 2.0 ** (np.floor(np.log2(ref.float().abs().max().item())) - 7)
+    bf16 = {"card_vs_cpu": rel(got, ref), "cpu_bf16_vs_f32": rel(ref, f32),
+            "card_vs_cpu_max_abs": (got.float() - ref.float()).abs().max().item(),
+            "top_ulp": float(top_ulp)}
+    print(f"[{tag}] {arch} in bf16 at B={B_ENC}, card against CPU: relative "
+          f"Frobenius gap {bf16['card_vs_cpu']:.3e}, max abs {bf16['card_vs_cpu_max_abs']:.3g} "
+          f"({bf16['card_vs_cpu_max_abs'] / top_ulp:.2f} bf16 ulps of the largest value); "
+          f"the CPU's bf16 against its f32 {bf16['cpu_bf16_vs_f32']:.3e}", flush=True)
+    check(got.dtype == torch.bfloat16 and got.shape == ref.shape and torch.isfinite(got).all(),
+          f"{tag}: bf16 annotations, type, shape, finite")
+    # the two bf16 runs differ where a float32 sum (cuDNN's, oneDNN's) lands
+    # on the other side of a bf16 rounding, and the difference travels on
+    # through the blocks: an H100 measured 2^-7 at mobilenet_v3_small (PERF.md)
+    check(bf16["card_vs_cpu_max_abs"] <= 4 * top_ulp,
+          f"{tag}: bf16 card within 4 bf16 ulps of the CPU's ({bf16})")
+    return bf16
 
 
 def decode_kernel_checks(model, imgs, rows, tag, loop=True):
@@ -1989,7 +2060,7 @@ def cli_serve_lightning(cfg, js, tmp, epochs, n_keys, dev, tag):
     check(fit_calls > 0, f"{tag}: the validations ran the step kernels")
     check(exact, f"{tag}: last.ckpt gives every parameter and buffer bit for bit")
     out = {"argv": argv, "epoch_loss": epoch_loss, "step_calls": fit_calls,
-           "profile_epoch_2": window,
+           "profile_epoch_2": window, "last_ckpt": last_ckpt,
            "epochs": [{"wall_s": t["seconds"], "train_s": t["train"]["seconds"]}
                       for t in trainer.epoch_timings]}
     del trainer
@@ -2036,8 +2107,8 @@ def main_path_and_times(model, imgs, kc, train, card, tag, extra=None):
     step kernels at B k rows); then the times of encode, the step at N =
     B_BEAM and the loop on ``kc``'s arguments (``decode_kernel_checks``),
     greedy and beam captioning and ``extra``'s functions; the train step
-    ``train`` (``steps_on_one_batch``); both kernels' bounds and their
-    entries of the ``kernels`` line."""
+    ``train`` (``steps_on_one_batch``) where given; both kernels' bounds and
+    their entries of the ``kernels`` line."""
     import torch
     from sat_tpu_torch.decode.beam import greedy_decode
     from sat_tpu_torch.kernels import decoder_step as KS
@@ -2078,12 +2149,14 @@ def main_path_and_times(model, imgs, kc, train, card, tag, extra=None):
             f"{p} {'not measured' if v is None else f'{v * 1e3:.1f} us'}"
             for p, v in parts.items())
         print(f"[time] {tag} ({card}) " + fmt_time(k, t, rate) + tail, flush=True)
-    st = train["step"]
-    print(f"[time] {tag} ({card}) train step at B={B_TRAIN}: {st['ms']:.3f} ms, "
-          f"{st['imgs_per_s']:.0f} imgs/s, busy {st['busy_ms']:.3f} ms, device idle "
-          f"{st['device_idle']:.1%}, peak memory {train['peak_memory_gib']:.3f} GiB; "
-          "busy by part: " + ", ".join(f"{k} {v:.3f} ms" for k, v in st["busy_parts_ms"].items()),
-          flush=True)
+    if train is not None:
+        st = train["step"]
+        print(f"[time] {tag} ({card}) train step at B={B_TRAIN}: {st['ms']:.3f} ms, "
+              f"{st['imgs_per_s']:.0f} imgs/s, busy {st['busy_ms']:.3f} ms, device idle "
+              f"{st['device_idle']:.1%}, peak memory {train['peak_memory_gib']:.3f} GiB; "
+              "busy by part: " + ", ".join(f"{k} {v:.3f} ms"
+                                           for k, v in st["busy_parts_ms"].items()),
+              flush=True)
     # bounds: inputs read once, outputs written once; this run's operations
     vcfg, (L, D) = la[-5], (kc["L"], kc["D"])
     H, E, A, V = vcfg.decoder_dim, vcfg.embed_dim, vcfg.attention_dim, vcfg.vocab_size
@@ -2250,31 +2323,7 @@ def mobilenet_phase(dev, js, card):
     # (a) the seven inverted-residual encoders, card against CPU, eval and train
     out["a_encoders"] = encoders_card_vs_cpu(MOBILE_ARCHS, dev, MOBILE_PX, 21, 70,
                                              "mobilenet (a)")
-    # mobilenet_v3_small in bf16, cast as serve casts the model
-    enc = seeded_encoder(MOBILE_ARCH, 77, dev, MOBILE_PX).eval()
-    x = torch.from_numpy(scenes(B_ENC, MOBILE_PX, seed=23))
-    with torch.no_grad():
-        f32 = enc.cpu()(x)
-        enc = enc.to(torch.bfloat16)
-        ref = enc(x.to(torch.bfloat16))
-        got = enc.to(dev)(x.to(dev, torch.bfloat16)).cpu()
-    rel = lambda a, b: ((a.float() - b.float()).norm() / b.float().norm()).item()
-    top_ulp = 2.0 ** (np.floor(np.log2(ref.float().abs().max().item())) - 7)
-    bf16 = {"card_vs_cpu": rel(got, ref), "cpu_bf16_vs_f32": rel(ref, f32),
-            "card_vs_cpu_max_abs": (got.float() - ref.float()).abs().max().item(),
-            "top_ulp": float(top_ulp)}
-    print(f"[mobilenet (a)] {MOBILE_ARCH} in bf16 at B={B_ENC}, card against CPU: relative "
-          f"Frobenius gap {bf16['card_vs_cpu']:.3e}, max abs {bf16['card_vs_cpu_max_abs']:.3g} "
-          f"({bf16['card_vs_cpu_max_abs'] / top_ulp:.2f} bf16 ulps of the largest value); "
-          f"the CPU's bf16 against its f32 {bf16['cpu_bf16_vs_f32']:.3e}", flush=True)
-    check(got.dtype == torch.bfloat16 and got.shape == ref.shape and torch.isfinite(got).all(),
-          "mobilenet (a): bf16 annotations, type, shape, finite")
-    # the two bf16 runs differ where a float32 sum (cuDNN's, oneDNN's) lands
-    # on the other side of a bf16 rounding, and the difference travels on
-    # through the blocks: an H100 measured 2^-7 (PERF.md)
-    check(bf16["card_vs_cpu_max_abs"] <= 4 * top_ulp,
-          f"mobilenet (a): bf16 card within 4 bf16 ulps of the CPU's ({bf16})")
-    out["a_bf16"] = bf16
+    out["a_bf16"] = bf16_encoder_card_vs_cpu(MOBILE_ARCH, dev, MOBILE_PX, 77, 23, "mobilenet (a)")
 
     # (a) the decode kernels at L 49, D 576 (V 4096), and the step at D 960, 1280
     stamps["a kernels"] = time.perf_counter()
@@ -2325,6 +2374,134 @@ def mobilenet_phase(dev, js, card):
     out.update(launches=run["launches"], kernels=run["kernels"], d=dict(run["times"], **run["bounds"]))
     shutil.rmtree(tmp, ignore_errors=True)
     out["seconds"] = phase_seconds(stamps, 14)
+    return out
+
+
+def densenet_phase(dev, js, card):
+    """Phase 15: the densenet121 configuration, with squeezenet1_1 beside
+    it (module docstring); ``js`` is phase 9's dataset."""
+    import torch
+    from sat_tpu_torch.config import SATConfig
+    from sat_tpu_torch.evalx import encoder_sweep
+    from sat_tpu_torch.models.encoder import probe_encoder
+    from sat_tpu_torch.models.model import SATModel
+    from sat_tpu_torch.train import loop
+    from sat_tpu_torch.train.checkpoints import read_checkpoint_config
+
+    out, stamps = {}, {"a encoders": time.perf_counter()}
+    # (a) the six SqueezeNet and DenseNet encoders, card against CPU, eval and
+    # train; densenet121 in bf16, cast as serve casts the model
+    out["a_encoders"] = encoders_card_vs_cpu(DENSE_ARCHS, dev, DENSE_PX, 31, 100,
+                                             "densenet (a)")
+    out["a_bf16"] = bf16_encoder_card_vs_cpu(DENSE_ARCH, dev, DENSE_PX, 107, 33, "densenet (a)")
+
+    # (a) the decode kernels at L 49, D 1024 and at squeezenet1_1's L 169, D 512
+    # (V 4096), and the step at D 1664, 1920, 2208
+    stamps["a kernels"] = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="sat_densenet_")
+    imgs192 = torch.from_numpy(scenes(B_BEAM, DENSE_PX, seed=32)).to(dev)
+    weights_of, kcs, n_keys = {}, {}, {}
+    for i, (arch, d) in enumerate(((DENSE_ARCH, DENSE_D), (SQUEEZE_ARCH, SQUEEZE_D))):
+        weights = os.path.join(tmp, f"{arch}_torchvision.pt")
+        n_keys[arch] = write_torchvision_weights(arch, DENSE_PX, weights, 110 + i, dev)
+        vcfg = vocab_config(V_REF, arch, DENSE_PX, None, d).replace(
+            pretrained=True, pretrained_weights=weights)
+        ref_model = SATModel.create(vcfg, torch.Generator(dev).manual_seed(112 + i)).eval()
+        kc = decode_kernel_checks(ref_model, imgs192, (B, B_BEAM), f"densenet (a) {arch}")
+        _, (h, w) = probe_encoder(vcfg)
+        check((kc["L"], kc["D"]) == (h * w, d), f"densenet (a): {arch} annotations "
+              f"{kc['L']} x {kc['D']}")
+        kcs[arch], weights_of[arch] = kc, weights
+        out[f"a_kernels_{arch}"] = {
+            "plans": kc["plans"], "step_err": kc["step_err"], "loop_agreement": kc["loop"][0],
+            "loop_err": kc["loop"][1], "loop_agreement_bf16": kc["loop_bf16"][0],
+            "loop_err_bf16": kc["loop_bf16"][1]}
+        del ref_model
+    for i, (arch, d) in enumerate(DENSE_WIDE):
+        m = SATModel.create(vocab_config(V_REF, arch, DENSE_PX, None, d),
+                            torch.Generator(dev).manual_seed(114 + i)).eval()
+        wk = decode_kernel_checks(m, imgs192, (B_BEAM,), f"densenet (a) {arch}", loop=False)
+        check(wk["D"] == d, f"densenet (a): {arch} D {wk['D']}")
+        out[f"a_step_err_D{d}"] = wk["step_err"]
+        del m, wk
+
+    # (b) training steps with the encoder finetuned from step 1
+    stamps["b train"] = time.perf_counter()
+    header = read_checkpoint_config(CKPT)
+    cfg15 = {arch: header.replace(
+        precision=32, device_resident_data=False, resume=None, json=None,
+        input_size=DENSE_PX, batch=B_TRAIN, encoder_arch=arch, encoder_size=None,
+        encoder_dim=None, pretrained=True, pretrained_weights=weights_of[arch],
+        encoder_finetune_after=1) for arch in (DENSE_ARCH, SQUEEZE_ARCH)}
+    c15 = cfg15[DENSE_ARCH]
+    check(c15.encoder_lr > 0, "densenet (b): the encoder trains")
+    out["b"] = steps_card_vs_cpu(
+        c15.replace(opt="sgd", momentum=0.0, decoder_tf="always", dropout=0.0,
+                    embedding_dropout=0.0, batch=B_TRAIN_CHECK), dev, 120, "densenet (b)")
+    out["b"].update(steps_on_one_batch(c15, js, os.path.join(tmp, "b"), dev, "densenet (b)"))
+
+    # (c) the training CLI, serve and the Lightning file: densenet121 for
+    # DENSE_EPOCHS, squeezenet1_1 (no BatchNorm: empty batch_stats) for 1;
+    # squeezenet1_1's last.ckpt resumes in a Trainer bit for bit
+    stamps["c cli"] = time.perf_counter()
+    cli_models = {}
+    for arch, epochs in ((DENSE_ARCH, DENSE_EPOCHS), (SQUEEZE_ARCH, 1)):
+        sub = os.path.join(tmp, f"c_{arch}")
+        os.makedirs(sub)
+        res, cli_models[arch] = cli_serve_lightning(cfg15[arch], js, sub, epochs, n_keys[arch],
+                                                    dev, f"densenet (c) {arch}")
+        _, (h, w) = probe_encoder(cfg15[arch])
+        check(cli_models[arch].grid_hw == (h, w), f"densenet (c): {arch} grid "
+              f"{cli_models[arch].grid_hw}")
+        out[f"c_{arch}"] = res
+    sq = cli_models[SQUEEZE_ARCH]
+    check(not any(isinstance(m, torch.nn.BatchNorm2d) for m in sq.modules()),
+          "densenet (c): squeezenet1_1 has no BatchNorm")
+    last = out[f"c_{SQUEEZE_ARCH}"]["last_ckpt"]
+    resumed = loop.Trainer(cfg15[SQUEEZE_ARCH].replace(json=js, resume=last),
+                           log_root=os.path.join(tmp, "c_resume"), device=dev)
+    a_sd, b_sd = sq.state_dict(), resumed.model.state_dict()
+    moments = [st for st in resumed.optimizer.state.values() if st]
+    resume_exact = a_sd.keys() == b_sd.keys() and all(torch.equal(a_sd[k], b_sd[k]) for k in a_sd)
+    print(f"[densenet (c)] {SQUEEZE_ARCH}'s last.ckpt resumed: step {resumed.global_step}, "
+          f"epoch {resumed.current_epoch}, weights bit for bit {resume_exact}, "
+          f"{len(moments)} parameters with optimizer state", flush=True)
+    check(resume_exact and resumed.global_step == FIT_TRAIN // B_TRAIN and len(moments) > 0,
+          f"densenet (c): {SQUEEZE_ARCH} resumes from its last.ckpt")
+    out["c_resume"] = {"step": resumed.global_step, "bit_for_bit": resume_exact,
+                       "params_with_state": len(moments)}
+    del resumed
+
+    # the slice's main path, counted, and (d) times, at both shapes
+    stamps["main path, d times"] = time.perf_counter()
+    out["kernels"], out["launches"] = [], {}
+    for arch, tag, train in ((DENSE_ARCH, "densenet", out["b"]),
+                             (SQUEEZE_ARCH, "squeezenet", None)):
+        run = main_path_and_times(cli_models[arch], imgs192[:B], kcs[arch], train, card, tag)
+        out["kernels"] += run["kernels"]
+        out["launches"][arch] = run["launches"]
+        out[f"d_{arch}"] = dict(run["times"], **run["bounds"])
+    del cli_models, sq
+
+    # (e) the encoder sweep at its default bf16, B 32 and 128
+    stamps["e sweep"] = time.perf_counter()
+    out["e"] = {}
+    for batch in SWEEP_BATCHES:
+        argv = ["--archs", *SWEEP_ARCHS, "--batch", str(batch), "--input_size", str(DENSE_PX)]
+        print(f"[densenet (e)] python -m sat_tpu_torch.evalx.encoder_sweep {' '.join(argv)} "
+              f"({card})", flush=True)
+        rows = encoder_sweep.main(argv)
+        check([r["arch"] for r in rows] == list(SWEEP_ARCHS), "densenet (e): a row per arch")
+        for row in rows:
+            d, (h, w) = probe_encoder(SATConfig(encoder_arch=row["arch"], input_size=DENSE_PX))
+            check((row["features"], row["attention"]) == (d, h * w),
+                  f"densenet (e): {row['arch']} {row['features']} x {row['attention']}")
+            check(all(0 < row[k] < float("inf") for k in
+                      ("latency_ms", "batches_per_sec", "imgs_per_sec")),
+                  f"densenet (e): {row['arch']} rates finite and positive ({row})")
+        out["e"][batch] = rows
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = phase_seconds(stamps, 15)
     return out
 
 
@@ -2710,6 +2887,10 @@ def main():
         stamps["mobilenet"] = time.perf_counter()
         report["mobilenet"] = mobilenet_phase(dev, report["fit"]["json"], card)
         kernels += report["mobilenet"]["kernels"]
+        # -- 15. the densenet121 configuration, squeezenet1_1 and the sweep ----------
+        stamps["densenet"] = time.perf_counter()
+        report["densenet"] = densenet_phase(dev, report["fit"]["json"], card)
+        kernels += report["densenet"]["kernels"]
     kernels[0].update(launches_serve=report["serve"]["a"]["step_calls"],
                       launches_evaluate=report["serve"]["d"]["step_calls"],
                       launches_resumed_fit=report["resume"]["b_step_calls"])

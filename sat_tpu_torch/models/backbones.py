@@ -1,18 +1,15 @@
-"""The ResNet family, ShuffleNetV2, MobileNetV2 / V3 and MNASNet backbones
-of ``sat_tpu/models/backbones.py`` as torch modules.
+"""The encoder zoo of ``sat_tpu/models/backbones.py`` as torch modules: the
+ResNet family, ShuffleNetV2, MobileNetV2 / V3, MNASNet, SqueezeNet and
+DenseNet, all 26 archs of ``config.ENCODER_ARCHS``.
 
 Submodule names follow the JAX parameter paths (``conv1``, ``bn1``,
 ``layer2_0.conv3``, ``layer2_0.down_bn``, ``stage2_0.b1_dw``, ``conv5``,
 ``stem``, ``stem_bn``, ``block3.expand``, ``block3.dw_bn``,
-``block3.se_fc1``, ``sep_pw``, ``head_bn``, ...) so ``models/jax_import.py``
-can map the flax weights by name.  The modules run NCHW, PyTorch's layout;
-the encoder converts at its boundary.  BatchNorm follows flax's
-(``BatchNorm`` below), in eval and in train mode.  ``BACKBONES`` holds the
-20 archs ported so far: resnet18/34/50/101/152, resnext50_32x4d,
-resnext101_32x8d, wide_resnet50_2, wide_resnet101_2, the four
-shufflenet_v2_*, mobilenet_v2, mobilenet_v3_large, mobilenet_v3_small and
-mnasnet0_5/0_75/1_0/1_3; the other encoders of ``config.ENCODER_ARCHS``
-(DenseNet, SqueezeNet) raise ``unported`` (``ROADMAP.md`` §1 item 7).
+``block3.se_fc1``, ``sep_pw``, ``head_bn``, ``fire2.expand3x3``,
+``conv0``, ``dense2_5.norm1``, ``trans1_conv``, ``norm5``, ...) so
+``models/jax_import.py`` can map the flax weights by name.  The modules run
+NCHW, PyTorch's layout; the encoder converts at its boundary.  BatchNorm
+follows flax's (``BatchNorm`` below), in eval and in train mode.
 
 The JAX package folds the input normalisation into the stem conv
 (``FoldedStemConv``) and permutes channels to avoid TPU relayouts
@@ -421,6 +418,126 @@ class MNASNet(_Blocks):
         return self.sep_pw_bn(self.sep_pw(x))
 
 
+class Fire(nn.Module):
+    """1 x 1 ``squeeze`` -> ReLU, then ``expand1x1`` and ``expand3x3``
+    (padding 1), each -> ReLU, concatenated in that order; every conv has a
+    bias."""
+
+    def __init__(self, cin: int, squeeze: int, expand1: int, expand3: int):
+        super().__init__()
+        self.squeeze = nn.Conv2d(cin, squeeze, 1)
+        self.expand1x1 = nn.Conv2d(squeeze, expand1, 1)
+        self.expand3x3 = nn.Conv2d(squeeze, expand3, 3, padding=1)
+        self.out_channels = expand1 + expand3
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = F.relu(self.squeeze(x))
+        return torch.cat([F.relu(self.expand1x1(s)), F.relu(self.expand3x3(s))], dim=1)
+
+
+# (squeeze, expand) of fire2..fire9; the expand widths are equal
+_FIRES = ((16, 64), (16, 64), (32, 128), (32, 128), (48, 192), (48, 192),
+          (64, 256), (64, 256))
+# (stem width, stem kernel, the fires each 3 x 3 / 2 max-pool follows)
+_SQUEEZE = {"1_0": (96, 7, (4, 8)), "1_1": (64, 3, (3, 5))}
+
+
+class SqueezeNet(nn.Module):
+    """``conv1`` (stride 2, no padding, bias) -> ReLU -> pool, then
+    ``fire2``..``fire9`` with a pool after fire4 and fire8 (1_0) or after
+    fire3 and fire5 (1_1).  No BatchNorm.  The pools are torch's
+    ``ceil_mode=True``, which keeps a last partial window as JAX's
+    ``_max_pool_ceil`` does by padding with -inf."""
+
+    def __init__(self, version: str):
+        super().__init__()
+        stem, k, self.pool_after = _SQUEEZE[version]
+        self.conv1 = nn.Conv2d(3, stem, k, 2)
+        cin = stem
+        for n, (sq, ex) in enumerate(_FIRES, start=2):
+            fire = Fire(cin, sq, ex, ex)
+            self.add_module(f"fire{n}", fire)
+            cin = fire.out_channels
+        self.out_channels = cin
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, 3, H, W), already normalised -> (B, 512, h, w)."""
+        pool = lambda t: F.max_pool2d(t, 3, 2, ceil_mode=True)
+        x = pool(F.relu(self.conv1(x)))
+        for n in range(2, 10):
+            x = getattr(self, f"fire{n}")(x)
+            if n in self.pool_after:
+                x = pool(x)
+        return x
+
+
+class DenseLayer(nn.Module):
+    """``norm1`` -> ReLU -> 1 x 1 ``conv1`` to bn_size x growth ->
+    ``norm2`` -> ReLU -> 3 x 3 ``conv2`` to growth; the output follows the
+    input in the concatenation."""
+
+    def __init__(self, cin: int, growth: int, bn_size: int = 4):
+        super().__init__()
+        self.norm1 = _bn(cin)
+        self.conv1 = _conv(cin, bn_size * growth, 1)
+        self.norm2 = _bn(bn_size * growth)
+        self.conv2 = _conv(bn_size * growth, growth, 3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv1(F.relu(self.norm1(x)))
+        y = self.conv2(F.relu(self.norm2(y)))
+        return torch.cat([x, y], dim=1)
+
+
+class DenseNet(nn.Module):
+    """Stem (7 x 7 / 2 ``conv0``, padding 3, ``norm0``, ReLU, 3 x 3 / 2
+    max-pool with padding 1), dense blocks of ``dense{i}_{j}`` layers, and
+    between blocks ``trans{i}_norm`` -> ReLU -> 1 x 1 ``trans{i}_conv`` to
+    half the channels -> 2 x 2 / 2 average pool (no padding: an odd map
+    loses its last row and column); ``norm5`` last, with no ReLU after it
+    (the reference keeps torchvision's ``features``, which end there)."""
+
+    def __init__(self, block_config: Sequence[int], growth: int = 32,
+                 init_features: int = 64):
+        super().__init__()
+        self.conv0 = _conv(3, init_features, 7, 2)
+        self.norm0 = _bn(init_features)
+        self.block_config = tuple(block_config)
+        ch = init_features
+        for i, n_layers in enumerate(self.block_config):
+            for j in range(n_layers):
+                self.add_module(f"dense{i + 1}_{j}", DenseLayer(ch, growth))
+                ch += growth
+            if i != len(self.block_config) - 1:
+                self.add_module(f"trans{i + 1}_norm", _bn(ch))
+                self.add_module(f"trans{i + 1}_conv", _conv(ch, ch // 2, 1))
+                ch //= 2
+        self.norm5 = _bn(ch)
+        self.out_channels = ch
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, 3, H, W), already normalised -> (B, C, H/32, W/32)."""
+        x = F.relu(self.norm0(self.conv0(x)))
+        x = F.max_pool2d(x, 3, 2, padding=1)
+        for i, n_layers in enumerate(self.block_config):
+            for j in range(n_layers):
+                x = getattr(self, f"dense{i + 1}_{j}")(x)
+            if i != len(self.block_config) - 1:
+                x = F.relu(getattr(self, f"trans{i + 1}_norm")(x))
+                x = F.avg_pool2d(getattr(self, f"trans{i + 1}_conv")(x), 2, 2)
+        return self.norm5(x)
+
+
+# (block config, growth, initial features) of JAX's BACKBONES registry
+DENSENET_ARCHS: Dict[str, Tuple[Sequence[int], int, int]] = {
+    "densenet121": ((6, 12, 24, 16), 32, 64),
+    "densenet169": ((6, 12, 32, 32), 32, 64),
+    "densenet201": ((6, 12, 48, 32), 32, 64),
+    "densenet161": ((6, 12, 36, 24), 48, 96),
+}
+SQUEEZENET_ARCHS = {"squeezenet1_0": "1_0", "squeezenet1_1": "1_1"}
+
+
 BACKBONES = {name: (lambda a=a: ResNet(*a)) for name, a in RESNET_ARCHS.items()}
 BACKBONES.update({name: (lambda st=st: ShuffleNetV2(st))
                   for name, st in _STAGES.items()})
@@ -432,15 +549,8 @@ BACKBONES.update({
 MNASNET_ALPHAS = {"mnasnet0_5": 0.5, "mnasnet0_75": 0.75, "mnasnet1_0": 1.0,
                   "mnasnet1_3": 1.3}
 BACKBONES.update({name: (lambda a=a: MNASNet(a)) for name, a in MNASNET_ALPHAS.items()})
-
-
-def unported(arch: str) -> NotImplementedError:
-    """The error of an encoder of ``config.ENCODER_ARCHS`` not ported yet."""
-    return NotImplementedError(
-        f"{arch}: the port runs the ResNet family (resnet*, resnext*, "
-        "wide_resnet*), shufflenet_v2_*, mobilenet_v2, mobilenet_v3_* and "
-        "mnasnet*; DenseNet and SqueezeNet and their weight converters are "
-        "ROADMAP.md §1 item 7")
+BACKBONES.update({name: (lambda v=v: SqueezeNet(v)) for name, v in SQUEEZENET_ARCHS.items()})
+BACKBONES.update({name: (lambda a=a: DenseNet(*a)) for name, a in DENSENET_ARCHS.items()})
 
 
 @torch.no_grad()

@@ -11,9 +11,9 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..config import ENCODER_ARCHS, SATConfig
+from ..config import SATConfig
 from ..ops.image_ops import adaptive_avg_pool2d, bilinear_resize, normalize_image
-from .backbones import BACKBONES, unported
+from .backbones import BACKBONES
 
 
 class SATEncoder(nn.Module):
@@ -22,8 +22,6 @@ class SATEncoder(nn.Module):
                  encoder_dim: Optional[int] = None,
                  encoder_size: Optional[int] = None):
         super().__init__()
-        if arch in ENCODER_ARCHS and arch not in BACKBONES:
-            raise unported(arch)
         if arch not in BACKBONES:
             raise ValueError(f"Encoder not supported : {arch}")
         self.mean, self.std = tuple(mean), tuple(std)

@@ -27,8 +27,8 @@ import torch
 
 from ..config import SATConfig
 from .lightning_import import _CHILD_MAPS, _family
-from .backbones import MNASNET_ALPHAS
-from .torch_import import _RESNET, MBV3_N, MNASNET_STACKS, SHUFFLENET_ARCHS, unported
+from .backbones import DENSENET_ARCHS, MNASNET_ALPHAS, SQUEEZENET_ARCHS
+from .torch_import import _RESNET, MBV3_N, MNASNET_STACKS, SHUFFLENET_ARCHS, SQUEEZENET_FIRES
 
 
 def _host(tree: Any) -> Any:
@@ -175,6 +175,32 @@ def _export_mnasnet(t: _Inv) -> None:
     t.bn("head_bn", "layers.15")
 
 
+def _export_squeezenet(t: _Inv, version: str) -> None:
+    t.conv("conv1", "features.0")
+    for n, feat in enumerate(SQUEEZENET_FIRES[version], start=2):
+        tp, blk = f"features.{feat}", t.sub(f"fire{n}")
+        blk.conv("squeeze", f"{tp}.squeeze")
+        blk.conv("expand1x1", f"{tp}.expand1x1")
+        blk.conv("expand3x3", f"{tp}.expand3x3")
+
+
+def _export_densenet(t: _Inv, block_config) -> None:
+    t.conv("conv0", "features.conv0")
+    t.bn("norm0", "features.norm0")
+    for i, n_layers in enumerate(block_config):
+        for j in range(n_layers):
+            tp = f"features.denseblock{i+1}.denselayer{j+1}"
+            blk = t.sub(f"dense{i+1}_{j}")
+            blk.bn("norm1", f"{tp}.norm1")
+            blk.conv("conv1", f"{tp}.conv1")
+            blk.bn("norm2", f"{tp}.norm2")
+            blk.conv("conv2", f"{tp}.conv2")
+        if i != len(block_config) - 1:
+            t.bn(f"trans{i+1}_norm", f"features.transition{i+1}.norm")
+            t.conv(f"trans{i+1}_conv", f"features.transition{i+1}.conv")
+    t.bn("norm5", "features.norm5")
+
+
 def export_backbone(arch: str, params: Dict, stats: Optional[Dict]
                     ) -> Dict[str, np.ndarray]:
     """Flax backbone (params, batch_stats) -> torchvision-keyed state_dict;
@@ -191,8 +217,12 @@ def export_backbone(arch: str, params: Dict, stats: Optional[Dict]
         _export_mobilenet_v3(t, MBV3_N[arch])
     elif arch in MNASNET_ALPHAS:
         _export_mnasnet(t)
+    elif arch in SQUEEZENET_ARCHS:
+        _export_squeezenet(t, SQUEEZENET_ARCHS[arch])
+    elif arch in DENSENET_ARCHS:
+        _export_densenet(t, DENSENET_ARCHS[arch][0])
     else:
-        raise unported(arch)
+        raise ValueError(f"no exporter for {arch}")
     return sd
 
 

@@ -20,9 +20,10 @@ Encoder mapping: the reference encoder is ``nn.Sequential(Normalize,
 keys go back to torchvision's key layout and through
 ``models/torch_import.py``'s converters: the nine ResNet-family tables
 (``resnet`` children 1, 2, 5-8 after Normalize), the four
-``shufflenet_v2_*`` ones, ``mobilenet_v2`` and both ``mobilenet_v3_*``
-(child 1, ``features``) and the four ``mnasnet*`` (child 1, ``layers``);
-DenseNet and SqueezeNet raise, ``ROADMAP.md`` §1 item 7.
+``shufflenet_v2_*`` ones, ``mobilenet_v2``, both ``mobilenet_v3_*``, both
+``squeezenet*`` and the four ``densenet*`` (child 1, ``features``) and the
+four ``mnasnet*`` (child 1, ``layers``).  A SqueezeNet's tree has an empty
+``batch_stats``, as JAX's importer gives it.
 
     python -m sat_tpu_torch.models.lightning_import --input ref.ckpt \\
         --output sat.ckpt

@@ -1,22 +1,17 @@
 """Offline torchvision weight import, ported from
-``sat_tpu/models/torch_import.py`` for the nine ResNet-family tables
-(resnet18/34/50/101/152, resnext50_32x4d, resnext101_32x8d,
-wide_resnet50_2, wide_resnet101_2), the four ``shufflenet_v2_*`` tables,
-``mobilenet_v2``, ``mobilenet_v3_large``, ``mobilenet_v3_small`` and the four
-``mnasnet*`` tables.
+``sat_tpu/models/torch_import.py`` for all 26 tables of
+``config.ENCODER_ARCHS``: the ResNet family, ``shufflenet_v2_*``,
+``mobilenet_v2``, ``mobilenet_v3_*``, ``mnasnet*``, ``squeezenet1_0/1_1``
+and ``densenet121/169/201/161``.
 
 A saved torchvision ``state_dict`` (``.pt``/``.pth`` or an ``.npz`` with the
 same keys) is converted, as in the JAX package, into the flax-layout tree of
 the backbone: ``(params, batch_stats)`` keyed by flax module path, conv
-kernels ``HWIO``, BatchNorm ``scale``/``bias`` and running ``mean``/``var``.
-``import_pretrained`` merges that tree into a model's tree
-(``jax_import.model_to_jax_tree``), which ``jax_import`` loads into the
-port's modules: the conversion is the JAX package's, the loading is the one
-every checkpoint takes.
-
-The DenseNet and SqueezeNet converters come with those encoders
-(``ROADMAP.md`` §1 item 7); ``convert_backbone`` raises
-``NotImplementedError`` for them."""
+kernels ``HWIO``, BatchNorm ``scale``/``bias`` and running ``mean``/``var``
+(empty for SqueezeNet, which has no BatchNorm).  ``import_pretrained``
+merges that tree into a model's tree (``jax_import.model_to_jax_tree``),
+which ``jax_import`` loads into the port's modules: the conversion is the
+JAX package's, the loading is the one every checkpoint takes."""
 
 from __future__ import annotations
 
@@ -24,7 +19,8 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 
-from .backbones import _MBV3_LARGE, _MBV3_SMALL, MNASNET_ALPHAS, RESNET_ARCHS, unported
+from .backbones import (_MBV3_LARGE, _MBV3_SMALL, DENSENET_ARCHS, MNASNET_ALPHAS,
+                        RESNET_ARCHS, SQUEEZENET_ARCHS)
 
 SHUFFLENET_ARCHS = ("shufflenet_v2_x0_5", "shufflenet_v2_x1_0",
                     "shufflenet_v2_x1_5", "shufflenet_v2_x2_0")
@@ -217,6 +213,44 @@ def convert_mnasnet(sd: Dict[str, Any]) -> Tuple[Dict, Dict]:
     return t.params, t.stats
 
 
+# the torchvision ``features`` index of fire2..fire9 in each SqueezeNet
+SQUEEZENET_FIRES = {"1_0": (3, 4, 5, 7, 8, 9, 10, 12), "1_1": (3, 4, 6, 7, 9, 10, 11, 12)}
+
+
+def convert_squeezenet(sd: Dict[str, Any], version: str) -> Tuple[Dict, Dict]:
+    t = _Tree()
+    t.conv("conv1", sd, "features.0")
+    for n, feat in enumerate(SQUEEZENET_FIRES[version], start=2):
+        tp = f"features.{feat}"
+        blk = _Tree()
+        blk.conv("squeeze", sd, f"{tp}.squeeze")
+        blk.conv("expand1x1", sd, f"{tp}.expand1x1")
+        blk.conv("expand3x3", sd, f"{tp}.expand3x3")
+        t.params[f"fire{n}"] = blk.params
+    return t.params, t.stats
+
+
+def convert_densenet(sd: Dict[str, Any], block_config) -> Tuple[Dict, Dict]:
+    t = _Tree()
+    t.conv("conv0", sd, "features.conv0")
+    t.bn("norm0", sd, "features.norm0")
+    for i, n_layers in enumerate(block_config):
+        for j in range(n_layers):
+            tp = f"features.denseblock{i+1}.denselayer{j+1}"
+            blk = _Tree()
+            blk.bn("norm1", sd, f"{tp}.norm1")
+            blk.conv("conv1", sd, f"{tp}.conv1")
+            blk.bn("norm2", sd, f"{tp}.norm2")
+            blk.conv("conv2", sd, f"{tp}.conv2")
+            t.params[f"dense{i+1}_{j}"] = blk.params
+            t.stats[f"dense{i+1}_{j}"] = blk.stats
+        if i != len(block_config) - 1:
+            t.bn(f"trans{i+1}_norm", sd, f"features.transition{i+1}.norm")
+            t.conv(f"trans{i+1}_conv", sd, f"features.transition{i+1}.conv")
+    t.bn("norm5", sd, "features.norm5")
+    return t.params, t.stats
+
+
 # blocks of each MobileNetV3 table
 MBV3_N = {"mobilenet_v3_large": len(_MBV3_LARGE), "mobilenet_v3_small": len(_MBV3_SMALL)}
 
@@ -237,7 +271,11 @@ def convert_backbone(arch: str, state_dict: Dict[str, Any]) -> Tuple[Dict, Dict]
         return convert_mobilenet_v3(sd, MBV3_N[arch])
     if arch in MNASNET_ALPHAS:
         return convert_mnasnet(sd)
-    raise unported(arch)
+    if arch in SQUEEZENET_ARCHS:
+        return convert_squeezenet(sd, SQUEEZENET_ARCHS[arch])
+    if arch in DENSENET_ARCHS:
+        return convert_densenet(sd, DENSENET_ARCHS[arch][0])
+    raise ValueError(f"no converter for {arch}")
 
 
 def load_state_dict(path: str) -> Dict[str, np.ndarray]:
@@ -273,5 +311,6 @@ def import_pretrained(arch: str, path: str, tree: Dict[str, Any]
     The tree is updated in place and returned."""
     params, stats = convert_backbone(arch, load_state_dict(path))
     _merge(tree["params"]["encoder"]["backbone"], params)
-    _merge(tree["state"]["batch_stats"]["backbone"], stats)
+    if stats:   # a BatchNorm-free backbone (squeezenet) has no batch_stats tree
+        _merge(tree["state"]["batch_stats"]["backbone"], stats)
     return tree

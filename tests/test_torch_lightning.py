@@ -134,17 +134,20 @@ def test_load_any_checkpoint_reads_both_formats(lightning, tmp_path):
 
 
 def test_other_encoders_raise():
-    """A densenet121 checkpoint: the port's converters stop with item 7."""
-    cfg = SATConfig(**tiny_cfg("densenet121").to_dict())
+    """A checkpoint of an encoder outside the zoo: the port's converter,
+    importer and exporter stop with JAX's ValueErrors."""
+    jcfg = tiny_cfg("vgg16")
+    cfg = SATConfig(**jcfg.to_dict())
     ckpt = {"state_dict": {"encoder.1.weight": np.zeros((8, 3, 7, 7), np.float32)},
             "hyper_parameters": cfg.to_dict()}
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TI.load_reference_checkpoint(ckpt, device="cpu")
     tree = {"params": {"encoder": {"backbone": {}}, "decoder": {}}, "state": {}}
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TE.build_lightning_checkpoint(cfg, tree)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        torch_import.convert_backbone("densenet121", {})
+    for what, call in (("converter", lambda: TI.load_reference_checkpoint(ckpt, device="cpu")),
+                       ("converter", lambda: JI.load_reference_checkpoint(ckpt)),
+                       ("converter", lambda: torch_import.convert_backbone("vgg16", {})),
+                       ("exporter", lambda: TE.build_lightning_checkpoint(cfg, tree)),
+                       ("exporter", lambda: JE.build_lightning_checkpoint(jcfg, tree))):
+        with pytest.raises(ValueError, match=f"no {what} for vgg16"):
+            call()
 
 
 def test_no_card_raises(lightning):

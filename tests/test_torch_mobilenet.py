@@ -116,7 +116,7 @@ def test_registry():
     the expand conv only where the width changes (block 0 of both
     MobileNetV3 tables has none), squeeze-excite only where the table
     marks it."""
-    assert set(ARCHS) <= set(TB.BACKBONES) and len(TB.BACKBONES) == 20
+    assert set(ARCHS) <= set(TB.BACKBONES) and len(TB.BACKBONES) == 26
     small = TB.BACKBONES["mobilenet_v3_small"]()
     assert not hasattr(small.block0, "expand") and hasattr(small.block0, "se_fc1")
     assert hasattr(small.block1, "expand") and not hasattr(small.block1, "se_fc1")
