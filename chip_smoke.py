@@ -197,6 +197,29 @@ Phases, each of which fails the run (nonzero exit, no result line):
    features and attention equal to ``probe_encoder``'s and its rates finite
    and positive (the rates are printed, not gated).
 
+16. the tools and the routes at the n64 configuration: (a) ``python -m
+   sat_tpu_torch.evalx.search``'s ``run_search`` of the n64 checkpoint on
+   phase 9's val split (batch 16, 2 batches a trial, 4 trials of seed 7:
+   beam, multinomial and topk trials without noise and one noisy trial) on
+   the card and on the CPU: each trial's route as it reported it (the step
+   kernels, whose calls are counted per trial, or the plain path for a
+   noisy trial), finite metrics, a beam trial's metrics within 0.01 of the
+   CPU's (of their size above 1), seconds per trial; each trial without
+   noise decoded again on the card by the step kernels and by the plain
+   path under the same draws, whose best captions must agree on 99 % of
+   images for beam search and 75 % for sampling; a second call (seed 1,
+   2 trials) appends to the CSV (6 rows); ``correlation_report`` finite
+   wherever both columns vary; both plots written; (b) ``make_visual`` of
+   val image 0 (beamk 3) on the card and the CPU: the step kernels, the
+   printed lines equal but the time, the uint8 masks within 1, the figure
+   written; (c) the training CLI at n64 widths with ``--decoder_layers 2``
+   for 1 epoch of phase 9's 512 images and a validation: the plain route
+   reported, no kernel launched, finite loss and BLEU-4; (d) ``serve
+   --decoder_noise 0.1`` at its default bf16 on phase 10's 257 files: 257
+   records, one error record, the plain route reported, no step-kernel
+   call; before it, phase 10 (a) must have kept the step kernels and its
+   82 calls.
+
 ``python3 chip_smoke.py --cpu-fit`` runs phase 9 (d) on the CPU and prints
 its losses as JSON.
 
@@ -291,6 +314,13 @@ DENSE_WIDE = (("densenet169", 1664), ("densenet201", 1920), ("densenet161", 2208
 SWEEP_ARCHS = ("shufflenet_v2_x0_5", "mobilenet_v3_small", "squeezenet1_1", "resnet18",
                "resnet50", "densenet121", "wide_resnet50_2")
 SWEEP_BATCHES = (32, 128)
+# phase 16: the decode-parameter search on phase 9's val split (seed 7 draws
+# a multinomial, a beam and a topk trial without noise and a multinomial
+# trial with noise 0.05; seed 1 appends a beam trial without noise and one
+# with noise 0.2), the visualizer, a 2-layer model through the training CLI,
+# and serve with decoder noise on phase 10's files
+SEARCH_SEEDS, SEARCH_TRIALS, SEARCH_BATCHES, SEARCH_B = (7, 1), (4, 2), 2, 16
+SERVE_A_STEP_CALLS = 82   # phase 10 (a)'s step-kernel calls in PR 15's runs
 TRAIN_PARTS = ("input copy", "augment", "encoder", "decoder forward",
                "backward", "optimizer")
 
@@ -1176,7 +1206,8 @@ def serve_phase(dev, js, card):
               f"{recs[0]['caption']!r}", flush=True)
         check(same16 == 16 and max(gaps) <= 1e-4,
               f"serve (a): {same16}/16 captions equal to the CPU's, gap {max(gaps)}")
-        out["a"] = {"route": tm["route"], "records": len(recs), "step_calls": calls,
+        out["a"] = {"route": tm["route"], "decode_route": tm["decode_route"],
+                    "records": len(recs), "step_calls": calls,
                     "batches": n_batches,
                     "cpu_captions_equal_of_16": same16, "cpu_max_gap": max(gaps),
                     "write_s": write_s, "captions": [r.get("caption") for r in recs[:8]]}
@@ -2505,6 +2536,281 @@ def densenet_phase(dev, js, card):
     return out
 
 
+def captured(fn, *args, **kw):
+    """(fn's result, its standard output, its standard error); both are
+    echoed once fn returns or raises."""
+    import io
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            res = fn(*args, **kw)
+    finally:
+        sys.stdout.write(out.getvalue())
+        sys.stderr.write(err.getvalue())
+        sys.stdout.flush()
+        sys.stderr.flush()
+    return res, out.getvalue(), err.getvalue()
+
+
+def counted_search(model, ds, csv_path, seed, n_trials):
+    """``run_search`` with the step-kernel calls of each trial (wrapped
+    around ``decode.api.caption_from_annotations``, which each batch of a
+    trial calls once) and the routes it reported on stderr."""
+    from sat_tpu_torch.decode import api
+    from sat_tpu_torch.evalx import search as SR
+    from sat_tpu_torch.kernels import decoder_step as KS
+
+    calls, real = [], api.caption_from_annotations
+
+    def wrapped(*a, **k):
+        before = KS.launches
+        res = real(*a, **k)
+        calls.append(KS.launches - before)
+        return res
+
+    api.caption_from_annotations = wrapped
+    try:
+        rows, _, err = captured(SR.run_search, model, ds, n_trials=n_trials,
+                                batches_per_trial=SEARCH_BATCHES,
+                                batch_size=SEARCH_B, csv_path=csv_path, seed=seed)
+    finally:
+        api.caption_from_annotations = real
+    routes = re.findall(r"trial \d+: decode route: (.*)", err)
+    per_trial = [sum(calls[i * SEARCH_BATCHES:(i + 1) * SEARCH_BATCHES])
+                 for i in range(n_trials)]
+    return rows, routes, per_trial
+
+
+def search_twins(model, ds, rows):
+    """For each trial of ``rows`` without noise, its batches decoded on the
+    model's device by the step kernels (``fused=None``) and by the plain
+    path (``fused=False``), both from a generator seeded with the trial's
+    index as ``run_search`` seeds it: {trial: the share of equal best
+    captions}."""
+    import torch
+    from sat_tpu_torch.data.dataset import CaptionLoader
+    from sat_tpu_torch.data.transforms import val_preprocess
+    from sat_tpu_torch.decode.api import caption_from_annotations
+
+    settings = ("beamk", "temperature", "sample_method", "sample_topk",
+                "decoder_noise", "rescore_method", "rescore_reward")
+    dev = model.decoder.embedding.device
+    loader = CaptionLoader(ds, SEARCH_B, model.cfg.input_size, shuffle=False, train=False)
+    annots = [model.encode(val_preprocess(torch.from_numpy(b["images"]).to(dev)))
+              for b, _ in zip(loader, range(SEARCH_BATCHES))]
+    shares = {}
+    for i, r in enumerate(rows):
+        if r["decoder_noise"] is not None:
+            continue
+        same = n = 0
+        for a in annots:
+            kern, plain = (caption_from_annotations(
+                model.decoder, model.cfg, a, model.grid_hw, max_gen_length=32,
+                generator=torch.Generator(dev).manual_seed(i), fused=fused,
+                **{k: r[k] for k in settings})[0] for fused in (None, False))
+            same += sum(x == y for x, y in zip(kern, plain))
+            n += len(kern)
+        shares[i] = same / n
+    return shares
+
+
+def tools_phase(dev, js, card):
+    """Phase 16: the decode-parameter search and the visualizer, a 2-layer
+    model and serve with decoder noise at the n64 configuration (module
+    docstring); ``js`` is phase 9's dataset."""
+    import torch
+    from sat_tpu_torch.config import args_from_config
+    from sat_tpu_torch.data.dataset import CaptionDataset
+    from sat_tpu_torch.evalx import search as SR
+    from sat_tpu_torch.evalx import visualize as VZ
+    from sat_tpu_torch.kernels import decoder_step as KS
+    from sat_tpu_torch.kernels import greedy_loop as KL
+    from sat_tpu_torch.train.checkpoints import load_any_checkpoint, read_checkpoint_config
+
+    out, stamps = {}, {"a search": time.perf_counter()}
+    tmp = tempfile.mkdtemp(prefix="sat_tools_")
+    model = load_any_checkpoint(CKPT, device=dev)
+    cpu_model = load_any_checkpoint(CKPT, device="cpu")
+    ds = CaptionDataset(js, "val")
+    metric = lambda r: {k: v for k, v in r.items() if k not in (
+        "beamk", "temperature", "sample_method", "sample_topk", "decoder_noise",
+        "rescore_method", "rescore_reward", "seconds_per_batch")}
+
+    # (a) the search, card and CPU, then a second call that appends
+    seed, n = SEARCH_SEEDS[0], SEARCH_TRIALS[0]
+    csv_card, csv_cpu = os.path.join(tmp, "card.csv"), os.path.join(tmp, "cpu.csv")
+    print(f"[tools (a)] run_search of the n64 checkpoint on phase 9's val split "
+          f"({len(ds)} images): seed {seed}, {n} trials of {SEARCH_BATCHES} batches of "
+          f"{SEARCH_B} ({card})", flush=True)
+    rows, routes, steps = counted_search(model, ds, csv_card, seed, n)
+    cpu_rows, cpu_routes, _ = counted_search(cpu_model, ds, csv_cpu, seed, n)
+    check(len(rows) == len(cpu_rows) == n and len(routes) == n,
+          f"tools (a): {len(rows)} trials, {len(routes)} routes reported")
+    kinds, trials = set(), []
+    for i, (r, c, route, st) in enumerate(zip(rows, cpu_rows, routes, steps)):
+        noisy = r["decoder_noise"] is not None
+        kind = "noisy" if noisy else ("beam" if r["sample_method"] == "beam" else "sampled")
+        kinds.add(kind)
+        gap = max(abs(v - c[k]) / max(1.0, abs(c[k])) for k, v in metric(r).items())
+        finite = all(np.isfinite(v) for v in metric(r).values())
+        trials.append({"trial": i, "kind": kind, "sample_method": r["sample_method"],
+                       "beamk": r["beamk"], "decoder_noise": r["decoder_noise"],
+                       "route": route, "step_calls": st, "bleu4": r["bleu4"],
+                       "cpu_bleu4": c["bleu4"], "max_gap_to_cpu": gap,
+                       "seconds": r["seconds_per_batch"] * SEARCH_BATCHES,
+                       "cpu_seconds": c["seconds_per_batch"] * SEARCH_BATCHES})
+        print(f"[tools (a)] trial {i} ({kind}, {r['sample_method']}, beamk {r['beamk']}, "
+              f"noise {r['decoder_noise']}): route {route!r}, {st} step-kernel calls, "
+              f"bleu4 {r['bleu4']:.4f} (CPU {c['bleu4']:.4f}), largest metric gap to the "
+              f"CPU {gap:.2e}; {trials[-1]['seconds']:.3f} s on the card, "
+              f"{trials[-1]['cpu_seconds']:.3f} s on the CPU ({card})", flush=True)
+        check(finite, f"tools (a): trial {i}'s metrics are finite")
+        check(cpu_routes[i] == "plain (not a CUDA device)", f"tools (a): CPU route {cpu_routes[i]}")
+        if noisy:
+            check(route == "plain (decoder_noise)" and st == 0,
+                  f"tools (a): noisy trial {i} takes the plain route ({route}, {st} calls)")
+        else:
+            check(route == "step kernels" and st > 0,
+                  f"tools (a): trial {i} takes the step kernels ({route}, {st} calls)")
+        if kind == "beam":
+            check(gap <= 0.01, f"tools (a): beam trial {i} within 0.01 of the CPU ({gap})")
+    check({"beam", "sampled", "noisy"} <= kinds, f"tools (a): seed {seed} draws {kinds}")
+    # the step kernels against the plain path on the card, trial by trial
+    # (beamk 20: N = 320 rows), under the same draws; sampling turns a
+    # rounding difference into another winner now and then (on the CPU the
+    # kernels' plain version and the plain path disagreed on one of eight
+    # batches of these settings), beam search should not
+    twins = search_twins(model, ds, rows)
+    for i, share in twins.items():
+        trials[i]["kernels_vs_plain"] = share
+        bar = 0.99 if rows[i]["sample_method"] == "beam" else 0.75
+        print(f"[tools (a)] trial {i} ({rows[i]['sample_method']}, N = "
+              f"{SEARCH_B * rows[i]['beamk']} rows): best captions of the step kernels "
+              f"equal to the plain path's on the card for {share:.1%} of images "
+              f"(gate {bar:.0%})", flush=True)
+        check(share >= bar, f"tools (a): trial {i} kernels against plain {share}")
+    rows2, _, steps2 = counted_search(model, ds, csv_card, SEARCH_SEEDS[1], SEARCH_TRIALS[1])
+    header, cols = SR._read_csv(csv_card)
+    check(len(cols[0]) == sum(SEARCH_TRIALS), f"tools (a): the CSV holds {len(cols[0])} rows")
+    names, corr = SR.correlation_report(csv_card)
+    mat = SR._numeric(csv_card)[1]
+    bad = []
+    for i in range(len(names)):
+        for j in range(len(names)):
+            both = np.isfinite(mat[:, i]) & np.isfinite(mat[:, j])
+            varies = (both.sum() >= 2 and np.ptp(mat[both, i]) > 0
+                      and np.ptp(mat[both, j]) > 0)
+            if varies and not np.isfinite(corr[i, j]):
+                bad.append((names[i], names[j]))
+    print(f"[tools (a)] second call (seed {SEARCH_SEEDS[1]}, {SEARCH_TRIALS[1]} trials, "
+          f"{steps2} step-kernel calls) appended: {len(cols[0])} rows of {len(header)} "
+          f"columns; correlation over {len(names)} numeric columns, NaN where a column "
+          f"is constant: {int(np.isnan(corr).sum())} entries", flush=True)
+    check(not bad, f"tools (a): correlations finite where the columns vary ({bad[:3]})")
+    plots = SR.plot_search_results(csv_card, tmp)
+    check(all(os.path.getsize(p) > 0 for p in plots), "tools (a): both plots written")
+    out["a"] = {"seed": seed, "trials": trials, "rows": len(cols[0]),
+                "step_calls_per_trial": steps + steps2, "numeric_columns": names,
+                "nan_correlations": int(np.isnan(corr).sum())}
+
+    # (b) the visualizer on one val image, card and CPU
+    stamps["b visualize"] = time.perf_counter()
+    masks = {}
+    real = VZ.attention_masks
+
+    def record(where):
+        def wrapped(atts, *a, **k):
+            masks[where] = real(atts, *a, **k)
+            return masks[where]
+        return wrapped
+
+    texts, viz_calls = {}, {}
+    for where, m in (("card", model), ("cpu", cpu_model)):
+        VZ.attention_masks = record(where)
+        KS.launches = 0
+        try:
+            path, texts[where], err = captured(
+                VZ.make_visual, m, ds, idx=0, beamk=3, show_topk=3,
+                out_dir=os.path.join(tmp, f"viz_{where}"))
+        finally:
+            VZ.attention_masks = real
+        viz_calls[where] = KS.launches
+        check(os.path.getsize(path) > 0, f"tools (b): the {where} figure {path} exists")
+        if where == "card":
+            viz_route = re.findall(r"decode route: (.*)", err)
+    mask = lambda t: re.sub(r"Inference in [0-9.]+ ms", "Inference in <t> ms", t)
+    (wc, tc), (wp, tp) = masks["card"], masks["cpu"]
+    mask_gap = max(int(np.abs(a.astype(int) - b.astype(int)).max())
+                   for a, b in zip(wc + [tc], wp + [tp])) if len(wc) == len(wp) else None
+    print(f"[tools (b)] make_visual of val image 0 (beamk 3): route {viz_route}, "
+          f"{viz_calls['card']} step-kernel calls, "
+          f"{len(wc)} word masks, printed lines equal to the CPU's but the time: "
+          f"{mask(texts['card']) == mask(texts['cpu'])}, largest mask gap {mask_gap}; "
+          f"{os.path.basename(path)}", flush=True)
+    check(viz_route == ["step kernels"] and viz_calls["card"] > 0,
+          f"tools (b): route {viz_route}, {viz_calls['card']} step-kernel calls")
+    check(mask(texts["card"]) == mask(texts["cpu"]),
+          "tools (b): the printed lines equal the CPU's but the time")
+    check(mask_gap is not None and mask_gap <= 1, f"tools (b): masks within 1 ({mask_gap})")
+    out["b"] = {"words": len(wc), "mask_gap": mask_gap, "step_calls": viz_calls["card"],
+                "inference_ms": float(re.findall(r"Inference in ([0-9.]+) ms",
+                                                 texts["card"])[0]),
+                "lines": mask(texts["card"]).splitlines()}
+
+    # (c) a 2-layer model through the training CLI: 1 epoch and a validation
+    stamps["c two layers"] = time.perf_counter()
+    cfg = read_checkpoint_config(CKPT).replace(
+        precision=32, device_resident_data=False, resume=None, json=js)
+    argv = args_from_config(cfg.replace(epochs=1, val_percent=0.5, decoder_layers=2)) + [
+        "--log_root", os.path.join(tmp, "c")]
+    KS.launches = KL.launches = 0
+    (trainer, calls, _), _, err = captured(logged_fit, argv, dev)
+    loss = [v for _, v in points(calls, "loss/train_epoch")]
+    bleu = [v for _, v in points(calls, "bleu4/val_epoch")]
+    fit_route = re.findall(r"decode route: (.*)", err)
+    print(f"[tools (c)] the training CLI at n64 widths, --decoder_layers 2, 1 epoch of "
+          f"{FIT_TRAIN} images: route {fit_route}, epoch loss {loss}, val BLEU-4 {bleu}, "
+          f"kernel launches {KS.launches} step, {KL.launches} loop", flush=True)
+    layers = sorted(k for k, _ in trainer.model.decoder.named_parameters()
+                    if k.startswith("lstm.") and k.endswith("w_ih"))
+    check(trainer.cfg.decoder_layers == 2 and len(layers) == 2,
+          f"tools (c): the trainer has 2 LSTM layers ({layers})")
+    check(fit_route == ["plain (decoder_layers 2)"], f"tools (c): route {fit_route}")
+    check(len(loss) == 1 and len(bleu) == 1 and np.isfinite(loss + bleu).all(),
+          f"tools (c): finite loss {loss} and BLEU {bleu}")
+    check(KS.launches == 0 and KL.launches == 0, "tools (c): no kernel launched")
+    out["c"] = {"route": fit_route[0], "loss": loss[0], "bleu4": bleu[0],
+                "epoch_s": trainer.epoch_timings[0]["seconds"]}
+    del trainer
+
+    # (d) serve with decoder noise on phase 10's files
+    stamps["d serve noise"] = time.perf_counter()
+    img_dir = os.path.join(tmp, "images")
+    os.makedirs(img_dir)
+    write_jpegs(img_dir, SERVE_N, seed=10)
+    (recs, calls, wall, tm), _, err = captured(
+        serve_run, ["--checkpoint", CKPT, "--images", img_dir, "--batch", str(SERVE_BATCH),
+                    "--beamk", str(K_BEAM), "--rescore_method", "LN",
+                    "--decoder_noise", "0.1"], os.path.join(tmp, "d.jsonl"))
+    errors = [r for r in recs if "error" in r]
+    finite = all(np.isfinite(r["score"]) for r in recs if "error" not in r)
+    print(f"[tools (d)] serve --decoder_noise 0.1 (bf16, the CLI's default) on phase "
+          f"10's {len(recs)} files: {len(errors)} error record, route "
+          f"{tm['decode_route']!r} (stderr: {re.findall(r'decode route: (.*)', err)}), "
+          f"{calls} step-kernel calls, scores finite {finite}, {wall:.2f} s ({card})",
+          flush=True)
+    check(len(recs) == SERVE_N + 1 and len(errors) == 1 and finite,
+          "tools (d): 257 records, one error record, finite scores")
+    check(tm["decode_route"] == "plain (decoder_noise)" and calls == 0
+          and "decode route: plain (decoder_noise)" in err,
+          f"tools (d): the plain route reported ({tm['decode_route']}, {calls} calls)")
+    out["d"] = {"records": len(recs), "route": tm["decode_route"], "step_calls": calls,
+                "seconds": wall}
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = phase_seconds(stamps, 16)
+    return out
+
+
 def cpu_fit():
     """Phase 9 (d) on the CPU (``--cpu-fit``): the same dataset and CLI
     run, printing the epoch-3 / epoch-1 loss ratio."""
@@ -2891,7 +3197,16 @@ def main():
         stamps["densenet"] = time.perf_counter()
         report["densenet"] = densenet_phase(dev, report["fit"]["json"], card)
         kernels += report["densenet"]["kernels"]
-    kernels[0].update(launches_serve=report["serve"]["a"]["step_calls"],
+        # -- 16. search, visualize, a 2-layer model and serve with noise ---------------
+        stamps["tools"] = time.perf_counter()
+        serve_a = report["serve"]["a"]
+        check(serve_a["decode_route"] == "step kernels"
+              and serve_a["step_calls"] == SERVE_A_STEP_CALLS,
+              f"phase 10 (a) keeps the step kernels ({serve_a['decode_route']}, "
+              f"{serve_a['step_calls']} calls, {SERVE_A_STEP_CALLS} in PR 15)")
+        report["tools"] = tools_phase(dev, report["fit"]["json"], card)
+    kernels[0].update(launches_search=report["tools"]["a"]["step_calls_per_trial"],
+                      launches_serve=report["serve"]["a"]["step_calls"],
                       launches_evaluate=report["serve"]["d"]["step_calls"],
                       launches_resumed_fit=report["resume"]["b_step_calls"])
     stamps["end"] = time.perf_counter()

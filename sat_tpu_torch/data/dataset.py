@@ -1,11 +1,12 @@
 """The JSON dataset, bucket sampler and batch loader of
-``sat_tpu/data/dataset.py``, for one process.
+``sat_tpu/data/dataset.py``, with its process shards.
 
 Batches are numpy dicts: ``images`` uint8 (B, S, S, 3), ``captions`` int32
 (B, R, T) and ``lengths`` int32 (B, R), bit-identical to the JAX loader's
 for the same seed, since both draw from the same numpy ``SeedSequence``
 streams: ``[seed, 7, epoch]`` for the shuffle, ``[seed, 11, epoch]`` for the
-bucket groups and ``[seed, 5, 0, epoch, batch]`` for each batch's crops.
+bucket groups and ``[seed, 5, process_index, epoch, batch]`` for each
+batch's crops.
 Images decode through the C++ pool of ``native/`` where it builds, else
 through ``data/images.py`` (PIL, or PNG by zlib + numpy), by JAX's rules;
 ``workers > 0`` decodes in a prefetch thread."""
@@ -84,16 +85,33 @@ class CaptionLoader:
     per batch with ``rng.random((n, 2))`` float32 offsets (train) or the
     centre sentinel -1 (val), and ``square_crop``'s integer draws for a
     file the pool rejects, which falls back to ``decode_resized``; cached,
-    ``decode_resized`` of the pool, then ``square_crop``."""
+    ``decode_resized`` of the pool, then ``square_crop``.
+
+    ``process_count > 1`` loads one process's share, as JAX's multi-host
+    loader does: ``batch_size`` stays the global batch, every process
+    computes the same epoch order, and process ``process_index`` takes the
+    contiguous rows ``[i * B / P, (i + 1) * B / P)`` of each global batch,
+    with the global batch's caption trim.  The batch must divide by the
+    process count, and a ragged tail is not allowed (``drop_last``)."""
 
     def __init__(self, ds: CaptionDataset, batch_size: int, input_size: int,
                  shuffle: bool = True, bucket: bool = False, seed: int = 0,
                  workers: int = 0, train: bool = True, drop_last: bool = True,
                  cache_images: bool = False,
-                 native_decode: Optional[bool] = None):
+                 native_decode: Optional[bool] = None,
+                 process_index: int = 0, process_count: int = 1):
+        if process_count > 1:
+            # JAX's checks, raised as ValueError (an assert vanishes under -O)
+            if batch_size % process_count:
+                raise ValueError(f"batch {batch_size} not divisible by "
+                                 f"{process_count} processes")
+            if not drop_last:
+                raise ValueError("multi-process loading requires drop_last")
         self._native = native.pool_for(native_decode)
         self.ds = ds
         self.batch_size = batch_size
+        self.process_index = process_index
+        self.process_count = process_count
         self.input_size = input_size
         self.shuffle = shuffle
         self.workers = max(0, workers)
@@ -155,32 +173,42 @@ class CaptionLoader:
         self.decoded += len(idxs)
         return imgs
 
-    def captions_of(self, idxs: Sequence[int]) -> Tuple[np.ndarray, np.ndarray]:
+    def _trim_len(self, idxs: Sequence[int]) -> int:
+        """<START> + the longest target run of batch ``idxs``, rounded up to
+        4k + 1."""
+        t_needed = int(self.ds.lengths[list(idxs)].max()) + 1
+        return min(-(-t_needed // 4) * 4 + 1, self.ds.encoded_captions.shape[2])
+
+    def captions_of(self, idxs: Sequence[int], trim: Optional[int] = None
+                    ) -> Tuple[np.ndarray, np.ndarray]:
         """Batch ``idxs``'s captions and lengths; with the bucket sampler the
-        captions trimmed to the batch's longest, rounded up to 4k + 1."""
+        captions trimmed to ``trim`` (a plan's global trim), by default the
+        batch's own ``_trim_len``."""
         captions = self.ds.encoded_captions[list(idxs)]
         lengths = self.ds.lengths[list(idxs)]
         if self._sampler is not None:
-            t_needed = int(lengths.max()) + 1
-            captions = captions[:, :, :min(-(-t_needed // 4) * 4 + 1, captions.shape[2])]
+            captions = captions[:, :, :trim or self._trim_len(idxs)]
         return captions, lengths
 
-    def _make_batch(self, idxs: Sequence[int], stream: Tuple[int, int]) -> Batch:
+    def _make_batch(self, idxs: Sequence[int], trim: Optional[int],
+                    stream: Tuple[int, int]) -> Batch:
         epoch, bi = stream
-        rng = np.random.default_rng(np.random.SeedSequence([self._seed, 5, 0, epoch, bi]))
+        rng = np.random.default_rng(np.random.SeedSequence(
+            [self._seed, 5, self.process_index, epoch, bi]))
         if self._native is None or self._img_cache is not None:
             imgs = np.stack([square_crop(self._decode_full(i), self.input_size,
                                          random_offset=self.train, rng=rng)
                              for i in idxs])
         else:
             imgs = self._pool_batch(idxs, rng)
-        captions, lengths = self.captions_of(idxs)
+        captions, lengths = self.captions_of(idxs, trim)
         return {"images": imgs, "captions": captions, "lengths": lengths}
 
-    def batch_plans(self) -> List[Tuple[List[int], Tuple[int, int]]]:
-        """One epoch's plan, (dataset indices, crop stream key) per batch,
-        without decoding anything.  Without ``set_epoch``, each pass is
-        the next epoch."""
+    def batch_plans(self) -> List[Tuple[List[int], Optional[int], Tuple[int, int]]]:
+        """One epoch's plan, (this process's dataset indices, the global
+        batch's caption trim or None for one process, crop stream key) per
+        batch, without decoding anything.  Without ``set_epoch``, each pass
+        is the next epoch."""
         epoch = (self._external_epoch if self._external_epoch is not None
                  else self._epoch)
         order = self._order(epoch)
@@ -189,7 +217,14 @@ class CaptionLoader:
                    for i in range(n_full)]
         if not self.drop_last and len(order) % self.batch_size:
             batches.append(order[n_full * self.batch_size:])
-        plans = [(b, (epoch, bi)) for bi, b in enumerate(batches)][self._skip_next:]
+        if self.process_count > 1:
+            local = self.batch_size // self.process_count
+            lo = self.process_index * local
+            batches = [(b[lo:lo + local], self._trim_len(b)) for b in batches]
+        else:
+            batches = [(b, None) for b in batches]
+        plans = [(b, trim, (epoch, bi))
+                 for bi, (b, trim) in enumerate(batches)][self._skip_next:]
         self._skip_next = 0
         self._epoch += 1
         return plans
@@ -197,8 +232,8 @@ class CaptionLoader:
     def __iter__(self) -> Iterator[Batch]:
         plans = self.batch_plans()
         if self.workers == 0:
-            for idxs, stream in plans:
-                yield self._make_batch(idxs, stream)
+            for idxs, trim, stream in plans:
+                yield self._make_batch(idxs, trim, stream)
             return
         q: "queue.Queue" = queue.Queue(maxsize=self.workers * 2)
         stop = threading.Event()   # set when the consumer leaves early
@@ -213,8 +248,8 @@ class CaptionLoader:
             return False
 
         def producer():
-            for idxs, stream in plans:
-                if not put(self._make_batch(idxs, stream)):
+            for idxs, trim, stream in plans:
+                if not put(self._make_batch(idxs, trim, stream)):
                     return
             put(None)
 

@@ -125,17 +125,44 @@ def _result(tokens, alphas, scores, flen, finished, S, rescore_method,
                       alphas=alphas[:, None])
 
 
+LOOP_ROUTE, STEP_ROUTE = "loop kernel", "step kernels"
+
+
+def decode_route(device: torch.device, cfg: SATConfig, L: int, *,
+                 noisy: bool = False, greedy: bool = False,
+                 itemsize: int = 4) -> str:
+    """The implementation ``fused=None`` takes, named with its reason.
+
+    On a CUDA device this is JAX's rule (``use_fused = fused and
+    decoder_layers == 1 and not noisy``, ``sat_tpu/decode/beam.py``) with
+    the kernels' own gates: greedy decoding takes the loop kernel where
+    ``greedy_loop_supported`` holds, else the step kernels where
+    ``fused_step_supported`` holds; beam search takes the step kernels
+    where that holds and the call draws no hidden-state noise.  Everything
+    else is the plain path, named ``"plain (<reason>)"``.  The rule reads
+    only the config and the call's arguments: a kernel that fails to build
+    or launch fails the run, it never turns into the plain path."""
+    if device.type != "cuda":
+        return "plain (not a CUDA device)"
+    if cfg.decoder_layers != 1:
+        return f"plain (decoder_layers {cfg.decoder_layers})"
+    if noisy:
+        return "plain (decoder_noise)"
+    if greedy and greedy_loop_supported(cfg, L, itemsize):
+        return LOOP_ROUTE
+    if fused_step_supported(cfg, L):
+        return STEP_ROUTE
+    return f"plain (L {L} scores exceed the kernels' shared memory)"
+
+
 def select_fused(fused: Union[None, bool, str], device: torch.device,
                  cfg: SATConfig, L: int, itemsize: int) -> Union[bool, str]:
     """The implementation ``fused`` names for annotations on ``device``:
-    ``None`` means the loop kernel on a CUDA device where its gate allows, else
-    the step kernel, and the plain path elsewhere.  Raises where the chosen
-    kernel's gate fails (both need one LSTM layer): a deeper stack on the card
-    runs the plain path only when the caller asks for it, ``fused=False``."""
+    ``None`` is ``decode_route``'s greedy route.  An explicit kernel path
+    raises where that kernel's gate fails (both need one LSTM layer)."""
     if fused is None:
-        if device.type != "cuda":
-            return False
-        fused = "loop" if greedy_loop_supported(cfg, L, itemsize) else True
+        route = decode_route(device, cfg, L, greedy=True, itemsize=itemsize)
+        return "loop" if route == LOOP_ROUTE else route == STEP_ROUTE
     if fused == "loop":
         if not greedy_loop_supported(cfg, L, itemsize):
             raise ValueError("greedy loop kernel: decoder_layers must be 1 and "
@@ -159,12 +186,13 @@ def greedy_decode(params, cfg: SATConfig, annotations: torch.Tensor, *,
     per-step PyTorch path, ``True`` the step kernels
     (``kernels/decoder_step.py``) plus a matmul for the vocab projection, and
     ``"loop"`` the whole-loop phase kernels (``kernels/greedy_loop.py``).  The one
-    difference from the JAX signature is the default, ``fused=None``: on a
-    CUDA tensor it means the loop kernel where its gate allows, else the step
-    kernel, which raises where its gate fails too (both need one LSTM layer:
-    a deeper stack on the card needs ``fused=False``); on a CPU tensor it
-    means the plain path.  A kernel path on CPU tensors runs that kernel's
-    plain PyTorch version.
+    difference from the JAX signature is the default, ``fused=None``:
+    ``decode_route``'s greedy route, which on a CUDA tensor is the loop
+    kernel where its gate allows, else the step kernel where its gate
+    allows, else (a deeper LSTM stack) the plain path; on a CPU tensor it
+    is the plain path.  An explicit kernel path raises where its gate
+    fails.  A kernel path on CPU tensors runs that kernel's plain PyTorch
+    version.
 
     ``early_exit=True`` stops once every caption has emitted <END>; the
     outputs equal the fixed-length run (finished rows only append PAD and
@@ -209,15 +237,15 @@ def greedy_decode(params, cfg: SATConfig, annotations: torch.Tensor, *,
 
 def select_beam_fused(fused: Optional[bool], device: torch.device,
                       cfg: SATConfig, L: int, noisy: bool) -> bool:
-    """Whether beam search runs the step kernels: ``None`` means yes on a
-    CUDA device and no elsewhere.  Raises where the kernels cannot run what
-    was asked (``select_fused``'s gate, hidden-state noise): on the card,
-    those need ``fused=False``."""
+    """Whether beam search runs the step kernels: ``None`` is
+    ``decode_route``'s beam route.  An explicit ``True`` raises where the
+    kernels cannot run what was asked (``select_fused``'s gate,
+    hidden-state noise)."""
     if fused == "loop":
         raise ValueError("beam search has no loop kernel: fused is None, "
                          "True or False")
     if fused is None:
-        fused = device.type == "cuda"
+        return decode_route(device, cfg, L, noisy=noisy) == STEP_ROUTE
     if fused and noisy:
         raise ValueError("fused step kernels: decoder_noise needs fused=False "
                          "(the kernels compute attention and the LSTM from "
@@ -255,11 +283,12 @@ def beam_search(params, cfg: SATConfig, annotations: torch.Tensor, *,
     attention reads the (B, L, .) annotations once per image for its k
     slots; ``True`` the step kernels (``kernels/decoder_step.py``) on B k
     row copies of the annotations, plus a matmul for the vocabulary.
-    ``None`` means the step kernels on a CUDA tensor and the plain path on a
-    CPU tensor, where the kernel path runs the kernels' plain version.  The
-    kernels compute attention and the LSTM from one hidden state and need one
-    LSTM layer, so the kernel path raises with ``decoder_noise`` or a deeper
-    stack: on the card those need ``fused=False``.
+    ``None`` is ``decode_route``'s beam route: the step kernels on a CUDA
+    tensor, except for a deeper LSTM stack or ``decoder_noise`` (the kernels
+    compute attention and the LSTM from one hidden state and need one LSTM
+    layer), which take the plain path, as JAX's rule does; the plain path on
+    a CPU tensor, where ``fused=True`` runs the kernels' plain version.
+    ``fused=True`` raises with ``decoder_noise`` or a deeper stack.
 
     ``early_exit=True`` stops once every slot of every image has finished,
     at one host sync per step on the card; the tokens, scores, lengths and
@@ -285,8 +314,9 @@ def beam_search(params, cfg: SATConfig, annotations: torch.Tensor, *,
         lw = step_weights(params, cfg, annotations.dtype)         # once per decode
         emb = capped_embedding(params, cfg)
         # the kernels read one row per slot: image-major, slot-minor copies
+        # (contiguous: for one image the reshape is a stride-0 view)
         rep = lambda x: x[:, None].expand(b, k, *x.shape[1:]).reshape(
-            b * k, *x.shape[1:])
+            b * k, *x.shape[1:]).contiguous()
         annot_flat, ae_flat = rep(annotations), rep(att_enc)
 
         def step(prev_embed, h, c, t):
@@ -309,8 +339,10 @@ def beam_search(params, cfg: SATConfig, annotations: torch.Tensor, *,
             x = torch.cat([prev_embed, beta_gate(params, hidden) * zt], dim=-1)
             h_in = h
             if noisy:
-                h_in = h + normal_noise(h.shape, generator, dev) * (
-                    decoder_noise / (t + 1.0))
+                # in the state's type: JAX's float32 draw turns a bf16
+                # state float32, which its scan's carry refuses (TypeError)
+                h_in = h + (normal_noise(h.shape, generator, dev) * (
+                    decoder_noise / (t + 1.0))).to(h.dtype)
             h1, c1 = lstm_stack_step(x, h_in.reshape(h.shape[0], b * k, -1),
                                      c.reshape(c.shape[0], b * k, -1),
                                      params.lstm)

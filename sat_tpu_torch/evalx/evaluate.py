@@ -42,6 +42,8 @@ def evaluate(model, ds, batch_size: int = 64, beamk: int = 5,
     loader = CaptionLoader(ds, min(batch_size, len(ds)), model.cfg.input_size,
                            shuffle=False, train=False, drop_last=False)
     dev = next(model.parameters()).device
+    if verbose:
+        print(f"decode route: {model.decode_route()}", file=sys.stderr)
     embedding = model.decoder.embedding.detach().float().cpu().numpy()
     tm = {"data": 0.0, "decode": 0.0, "score": 0.0}
     # Accumulate the WHOLE split, then score once: corpus BLEU/GLEU are

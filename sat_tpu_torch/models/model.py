@@ -14,6 +14,7 @@ from torch import nn
 
 from ..config import SATConfig
 from ..decode.api import caption_from_annotations
+from ..decode.beam import decode_route
 from ..vocab import Vocab
 from .backbones import flax_init_
 from .decoder import ParamTree, init_decoder_params
@@ -82,6 +83,13 @@ class SATModel(nn.Module):
             return self.encoder.train()(images)
         with torch.no_grad():
             return self.encoder.eval()(images)
+
+    def decode_route(self, decoder_noise: Optional[float] = None) -> str:
+        """The beam route ``caption(fused=None)`` takes on the model's
+        device (``decode.beam.decode_route``), which callers report."""
+        gh, gw = self.grid_hw
+        return decode_route(self.decoder.embedding.device, self.cfg, gh * gw,
+                            noisy=decoder_noise is not None and decoder_noise != 0.0)
 
     def caption(self, images: torch.Tensor, beamk: int = 3,
                 max_gen_length: int = 32,

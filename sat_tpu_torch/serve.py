@@ -14,9 +14,11 @@ so batch N + 1 decodes while the card captions batch N: by the C++ pool of
 alone where the pool does not build.  A file that does not decode gives an error record.
 Batches have the fixed size ``--batch``, the tail padded with its last
 image; each batch is encoded and decoded by ``SATModel.caption`` (beam
-search: the step kernels on the card).  ``--precision 16`` (the default,
-as in the JAX package) casts every float leaf of the model and the images
-to bfloat16, which moves captions away from float32 (``ROADMAP.md`` §3).  ``main(argv, device="cpu")`` runs on
+search: the step kernels on the card, or the plain path by
+``decode.beam.decode_route``'s rule, reported on stderr).  ``--precision
+16`` (the default, as in the JAX package) casts every float leaf of the
+model and the images to bfloat16, which moves captions away from float32
+(``ROADMAP.md`` §3).  ``main(argv, device="cpu")`` runs on
 the CPU; by default it runs on the CUDA card and raises without one.
 """
 
@@ -87,10 +89,11 @@ def main(argv: Optional[Sequence[str]] = None,
     """The CLI.  A ``timings`` dict receives the run's seconds (``seconds``
     from the checkpoint's load to the last record, ``decode_s`` in the
     prefetch thread, ``decode_wait_s`` waited on it), ``images`` and the
-    decode route (``route``)."""
+    image-decode route (``route``) and the beam route (``decode_route``,
+    printed on stderr too)."""
     from . import native
     from .train.checkpoints import load_any_checkpoint
-    from .utils.platform import resolve_device
+    from .utils.platform import require_one_device, resolve_device
 
     p = argparse.ArgumentParser(description="batch image captioning")
     p.add_argument("--checkpoint", required=True)
@@ -104,8 +107,8 @@ def main(argv: Optional[Sequence[str]] = None,
                    choices=["beam", "multinomial", "topk"])
     p.add_argument("--sample_topk", default=3, type=int)
     p.add_argument("--decoder_noise", default=None, type=float,
-                   help="hidden-state noise; on the card it needs the plain "
-                        "decode path, which serving does not take, so it raises")
+                   help="hidden-state noise; decodes by the plain path (the "
+                        "step kernels draw none), as the JAX package's rule")
     p.add_argument("--rescore_method", default="LN")
     p.add_argument("--rescore_reward", default=0.5, type=float)
     p.add_argument("--early_exit", action="store_true", default=True,
@@ -122,11 +125,7 @@ def main(argv: Optional[Sequence[str]] = None,
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--output", default="-", help="JSONL path ('-' = stdout)")
     a = p.parse_args(argv)
-    if a.mesh_shape not in ([-1], [1]) or a.mesh_axes != ["data"]:
-        raise NotImplementedError(
-            "--mesh_shape/--mesh_axes: the port serves on one device; "
-            "multi-GPU and vocab-dim tensor parallelism are ROADMAP.md §1 "
-            "item 11")
+    require_one_device(a.mesh_shape, a.mesh_axes, "serves")
     paths = gather_images(a.images)
     if not paths:
         print("no images found", file=sys.stderr)
@@ -143,6 +142,8 @@ def main(argv: Optional[Sequence[str]] = None,
     temperature = (a.temperature[0] if len(a.temperature) == 1
                    else list(a.temperature))
     generator = torch.Generator(device=dev).manual_seed(a.seed)
+    route = model.decode_route(a.decoder_noise)
+    print(f"decode route: {route}", file=sys.stderr)
 
     out = sys.stdout if a.output == "-" else open(a.output, "w")
     n_done, t0 = 0, time.perf_counter()
@@ -205,7 +206,7 @@ def main(argv: Optional[Sequence[str]] = None,
             out.close()
     if timings is not None:
         timings.update(tm, images=n_done, seconds=time.perf_counter() - t0,
-                       route=native.route())
+                       route=native.route(), decode_route=route)
     return 0
 
 

@@ -75,7 +75,7 @@ from ..evalx.metrics import score_captions
 from ..models.jax_import import model_to_jax_tree
 from ..models.model import SATModel
 from ..models.sat import train_forward_loss_grouped
-from ..utils.platform import resolve_device
+from ..utils.platform import require_one_device, resolve_device
 from ..utils.timing import StepTimer, maybe_profile
 from .checkpoints import (RestartCheckpointManager, TopKCheckpointManager,
                           load_checkpoint, save_checkpoint)
@@ -142,12 +142,16 @@ class Trainer:
     ``cfg.train_loader_len``) sizes the LR schedules, and the caller hands
     the batches to ``train_step``/``train_epoch``.  ``device=None`` means the
     CUDA card and raises where there is none.  ``cfg.resume`` continues
-    from that checkpoint (``_resume``)."""
+    from that checkpoint (``_resume``).  ``mesh_shape`` / ``mesh_axes``
+    beyond one device on the ``data`` axis raise ``NotImplementedError``,
+    as ``serve`` does.  The first validation reports its decode route
+    (``SATModel.decode_route``) on stderr."""
 
     def __init__(self, cfg: SATConfig, dataset: Optional[Any] = None,
                  log_root: str = "logs",
                  device: Union[str, torch.device, None] = None,
                  steps_per_epoch: Optional[int] = None):
+        require_one_device(cfg.mesh_shape, cfg.mesh_axes, "trains")
         self.device = resolve_device(device)
         self.train_loader = self.val_loader = None
         if cfg.json is not None or dataset is not None:
@@ -192,6 +196,7 @@ class Trainer:
         self.early_stop_count = 0
         self.early_stop_best: Optional[float] = None
         self.should_stop = False
+        self._route_reported = False
         self.last_train_timings: Dict[str, float] = {}
         self.last_val_timings: Dict[str, float] = {}
         self.epoch_timings: List[Dict[str, Any]] = []
@@ -434,7 +439,7 @@ class Trainer:
         if own:
             self.train_loader.set_epoch(self.current_epoch, self._resume_skip_batches)
             self._resume_skip_batches = 0
-            batches = (map(self._staged_batch, (idxs for idxs, _ in self.train_loader.batch_plans()))
+            batches = (map(self._staged_batch, (idxs for idxs, _, _ in self.train_loader.batch_plans()))
                        if self._staged_images is not None else self.train_loader)
         epsilon = teacher_forcing_epsilon(cfg, self.current_epoch)
         timer, pending, rows = StepTimer(), [], []
@@ -498,6 +503,9 @@ class Trainer:
         scheduler, the top-k / last checkpoint and early stopping.
         ``last_val_timings`` holds the seconds of each part."""
         cfg = self.cfg
+        if not self._route_reported:
+            print(f"decode route: {self.model.decode_route()}", file=sys.stderr)
+            self._route_reported = True
         limit = max(1, int(round(cfg.val_percent * len(self.val_loader))))
         tm = {"data": 0.0, "decode_fetch": 0.0, "score": 0.0}
         embedding = self.model.decoder.embedding.detach().cpu().numpy()
@@ -510,7 +518,7 @@ class Trainer:
             ds = self.val_ds
             batches = ({"image_idx": idxs, "captions": ds.encoded_captions[idxs],
                         "lengths": ds.lengths[idxs]}
-                       for idxs, _ in self.val_loader.batch_plans()[:limit])
+                       for idxs, _, _ in self.val_loader.batch_plans()[:limit])
         while True:
             t0 = time.perf_counter()
             batch = next(batches, None)

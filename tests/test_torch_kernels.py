@@ -13,7 +13,7 @@ from sat_tpu.decode.beam import greedy_decode as jax_greedy
 from sat_tpu.kernels import decoder_step as JK
 from sat_tpu.models import decoder as JD
 from sat_tpu_torch.config import SATConfig
-from sat_tpu_torch.decode.beam import greedy_decode, select_fused
+from sat_tpu_torch.decode.beam import decode_route, greedy_decode, select_fused
 from sat_tpu_torch.kernels import decoder_step as KS
 from sat_tpu_torch.kernels import greedy_loop as KL
 from sat_tpu_torch.models import decoder as TD
@@ -241,9 +241,14 @@ def test_default_selection(cfg_kw, device, want):
 
 @pytest.mark.parametrize("fused", [None, True, "loop"])
 def test_two_layer_kernel_paths_raise_on_the_card(fused):
-    """A two-layer stack on a CUDA device: the default, like either kernel,
-    raises instead of quietly running the plain path."""
-    with pytest.raises(ValueError, match="decoder_layers"):
-        select_fused(fused, torch.device("cuda"), _n64(decoder_layers=2), 49, 4)
+    """A two-layer stack on a CUDA device: either kernel asked for raises;
+    the default takes the plain path by the stated rule (decode_route)."""
+    cuda, cfg2 = torch.device("cuda"), _n64(decoder_layers=2)
+    if fused is None:
+        assert select_fused(None, cuda, cfg2, 49, 4) is False
+        assert decode_route(cuda, cfg2, 49, greedy=True) == "plain (decoder_layers 2)"
+    else:
+        with pytest.raises(ValueError, match="decoder_layers"):
+            select_fused(fused, cuda, cfg2, 49, 4)
     assert select_fused(False, torch.device("cuda"),
                         _n64(decoder_layers=2), 49, 4) is False
