@@ -220,6 +220,31 @@ Phases, each of which fails the run (nonzero exit, no result line):
    call; before it, phase 10 (a) must have kept the step kernels and its
    82 calls.
 
+17. the mesh of ranks (``sat_tpu_torch/parallel/mesh.py``): the ranks run
+   as processes of this script (``--mesh-rank``) joined from torchrun's
+   variables, two gloo ranks sharing the card (``device="cuda:0"``; NCCL
+   takes no two ranks on one card), after the parent built the kernels:
+   (a) 6 steps at the n64 header's widths, B 64 over 2 ranks, dropout 0.3,
+   the header's augment, the encoder finetuned from step 3, SGD with
+   momentum, against one process on the card: losses and weights within
+   1e-5 of their scale, the BatchNorm statistics at phase 8 (a)'s
+   tolerance, both ranks bit for bit alike, the finetuned step's wall ms
+   printed beside one process's (information: the ranks share the card);
+   then greedy captioning of 32 rows per rank through the loop kernel,
+   99 % of tokens equal to one process's; (c) at phase 14's
+   mobilenet_v3_small widths (V 4096), 3 steps on the mesh (1, 2) ``data
+   model`` equal to the (2,) DP run (the tables' slices joined), each rank
+   holding 2048 embedding rows and ``out_proj`` columns and, under Adam,
+   the moments of those slices, the gathered checkpoint's full tables, and
+   ``serve --mesh_shape 1 2 --mesh_axes data model`` of it on phase 10's
+   files giving the one-rank JSONL's captions through the step kernels;
+   (b) ``python -m sat_tpu_torch.train --mesh_shape 2`` (the CLI's
+   ``main``) for 1 epoch of phase 9's dataset: one version directory, one
+   writer (``last.ckpt``, one event file), the same validation metrics on
+   both ranks, step-kernel calls on each; (d) one rank under NCCL from
+   torchrun's variables: its collectives, and 3 steps bit for bit the
+   no-group trainer's.
+
 ``python3 chip_smoke.py --cpu-fit`` runs phase 9 (d) on the CPU and prints
 its losses as JSON.
 
@@ -321,6 +346,16 @@ SWEEP_BATCHES = (32, 128)
 # and serve with decoder noise on phase 10's files
 SEARCH_SEEDS, SEARCH_TRIALS, SEARCH_BATCHES, SEARCH_B = (7, 1), (4, 2), 2, 16
 SERVE_A_STEP_CALLS = 82   # phase 10 (a)'s step-kernel calls in PR 15's runs
+# phase 17: the mesh of ranks (sat_tpu_torch/parallel/mesh.py): gloo ranks
+# that share the one card; (a)'s steps before and after the encoder
+# unfreezes and their dropout; (c)'s batch; (d)'s batch; the seconds a
+# group of ranks may take
+MESH_RANKS, MESH_STEPS, MESH_DROPOUT = 2, 3, 0.3
+MESH_B_MOBILE, MESH_B_NCCL, MESH_TIMEOUT = 32, 16, 600
+# (a), (c): the largest gaps between the ranks and one process (TP and DP),
+# tests/test_torch_mesh.py's: losses and weights within 1e-5 of their scale
+# (a weight's scale at least 1, mesh_gaps)
+MESH_LOSS_TOL, MESH_PARAM_TOL = 1e-5, 1e-5
 TRAIN_PARTS = ("input copy", "augment", "encoder", "decoder forward",
                "backward", "optimizer")
 
@@ -2811,6 +2846,426 @@ def tools_phase(dev, js, card):
     return out
 
 
+# --- phase 17: the mesh of ranks ----------------------------------------------
+
+def mesh_cfg_a():
+    """(a)'s configuration: the n64 header at float32 and full width, B 64,
+    dropout on, the header's augment, the encoder finetuned from step
+    MESH_STEPS, and SGD with momentum (linear in the gradient; Adam's first
+    update of a leaf is about lr * sign(g), which turns summation-order
+    noise on a finetuned encoder's near-zero gradients into lr-sized steps,
+    ROADMAP.md §3)."""
+    from sat_tpu_torch.train.checkpoints import read_checkpoint_config
+    return read_checkpoint_config(CKPT).replace(
+        precision=32, resume=None, device_resident_data=False, json=None,
+        batch=B_TRAIN, opt="sgd", momentum=0.9, dropout=MESH_DROPOUT,
+        embedding_dropout=MESH_DROPOUT, encoder_finetune_after=MESH_STEPS)
+
+
+def mesh_cfg_c(**kw):
+    """(c)'s configuration: phase 14's mobilenet_v3_small widths (V 4096,
+    E 256, H 512, L 49, D 576), a seeded encoder, frozen, dropout on, SGD
+    with momentum, B MESH_B_MOBILE."""
+    cfg = vocab_config(V_REF, MOBILE_ARCH, MOBILE_PX, None, MOBILE_D)
+    return cfg.replace(batch=MESH_B_MOBILE, max_cap_length=MAX_WORDS, opt="sgd",
+                       momentum=0.9, dropout=MESH_DROPOUT, decoder_lr=1e-3,
+                       train_loader_len=10, **kw)
+
+
+def mesh_cfg_d():
+    """(d)'s configuration: the n64 header at float32 (Adam, the augment,
+    the encoder frozen), B MESH_B_NCCL."""
+    from sat_tpu_torch.train.checkpoints import read_checkpoint_config
+    return read_checkpoint_config(CKPT).replace(
+        precision=32, resume=None, device_resident_data=False, json=None,
+        batch=MESH_B_NCCL)
+
+
+def mesh_batches(cfg, n, seed):
+    """n seeded global batches of ``cfg.batch`` images at 224 px."""
+    from sat_tpu_torch.vocab import Vocab
+    return [caption_batch(Vocab(cfg.vocab_stoi), cfg.batch, seed + i) for i in range(n)]
+
+
+def mesh_train(cfg, batches, dev):
+    """A Trainer on ``cfg`` (on a mesh: this rank's) takes a step on each
+    global batch's rows.  Returns (trainer, each step's metrics, the weights
+    and statistics on the CPU, each step's wall ms, synchronised)."""
+    import torch
+    from sat_tpu_torch.parallel.mesh import shard_batch
+    from sat_tpu_torch.train.loop import Trainer
+    tr = Trainer(cfg, device=dev)
+    losses, walls = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.train_step(shard_batch(b, tr.mesh))
+        losses.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    state = {k: v.detach().cpu().clone() for k, v in tr.model.state_dict().items()}
+    return tr, losses, state, walls
+
+
+def mesh_serve_argv(ckpt, img_dir):
+    return ["--checkpoint", ckpt, "--images", img_dir, "--batch", str(SERVE_BATCH),
+            "--beamk", str(K_BEAM), "--rescore_method", "LN", "--precision", "32"]
+
+
+def mesh_pair_job(out_dir, img_dir, js):
+    """Phase 17's work of each of the two gloo ranks on the one card."""
+    import torch
+    import torch.distributed as dist
+    from sat_tpu_torch import serve
+    from sat_tpu_torch.config import args_from_config
+    from sat_tpu_torch.decode.beam import greedy_decode
+    from sat_tpu_torch.kernels import decoder_step as KS
+    from sat_tpu_torch.kernels import greedy_loop as KL
+    from sat_tpu_torch.parallel.mesh import MODEL_AXIS, shard_batch
+    from sat_tpu_torch.train.__main__ import main as train_main
+    from sat_tpu_torch.train.checkpoints import (load_model_from_checkpoint,
+                                                 read_checkpoint_config, save_checkpoint)
+    from sat_tpu_torch.train.loop import Trainer
+
+    # the ranks share card 0 (resolve_device(None) would take LOCAL_RANK's)
+    dev = torch.device("cuda:0" if DEVICE == "cuda" else DEVICE)
+    rank, out = dist.get_rank(), {}
+    say = lambda msg: print(f"[mesh rank {rank}] {msg}", flush=True)
+    # (a) DP steps at n64, then greedy captioning of this rank's rows
+    cfg = mesh_cfg_a().replace(mesh_shape=(MESH_RANKS,))
+    tr, losses, state, walls = mesh_train(cfg, mesh_batches(cfg, 2 * MESH_STEPS, 170), dev)
+    out["a"] = {"losses": losses, "state": state, "wall_ms": walls}
+    say(f"(a) {2 * MESH_STEPS} DP steps, losses {[m['loss'] for m in losses]}, "
+        f"wall ms {[round(w, 1) for w in walls]}")
+    mesh = tr.mesh
+    del tr
+    model, _ = load_model_from_checkpoint(CKPT, device=dev)
+    imgs = torch.from_numpy(mesh.rows(scenes(B, 224, seed=0))).to(dev)
+    KS.launches = KL.launches = 0
+    g = greedy_decode(model.decoder, model.cfg, model.encode(imgs), max_gen_length=S,
+                      mesh=mesh)
+    torch.cuda.synchronize()
+    out["a_greedy"] = {"loop": KL.launches, "step": KS.launches,
+                       "tokens": mesh.fetch_global(g.tokens).cpu()}
+    del model
+
+    # (c) DP and vocab TP at mobilenet_v3_small; Adam's slices; the checkpoint
+    cfg_c = mesh_cfg_c()
+    batches = mesh_batches(cfg_c, MESH_STEPS, 180)
+    for tag, kw in (("dp", dict(mesh_shape=(MESH_RANKS,))),
+                    ("tp", dict(mesh_shape=(1, MESH_RANKS), mesh_axes=("data", MODEL_AXIS)))):
+        tr, losses, state, walls = mesh_train(cfg_c.replace(**kw), batches, dev)
+        out["c_" + tag] = {"losses": losses, "state": state, "wall_ms": walls}
+        say(f"(c) {tag} {tr.mesh}: losses {[m['loss'] for m in losses]}")
+    dec = tr.model.decoder
+    out["c_tp"]["slices"] = [tuple(dec.embedding.shape), tuple(dec.out_proj.w.shape),
+                             tuple(dec.out_proj.b.shape)]
+    del tr
+    tr = Trainer(cfg_c.replace(opt="adam", mesh_shape=(1, MESH_RANKS),
+                               mesh_axes=("data", MODEL_AXIS)), device=dev)
+    check(tr.vocab_sharded, "mesh (c): vocab TP shards the tables")
+    tr.train_step(shard_batch(batches[0], tr.mesh))
+    out["c_adam"] = {n: {k: tuple(v.shape) for k, v in tr.optimizer.state[p].items() if v.ndim}
+                     for n, p in tr.model.named_parameters()
+                     if tr.mesh.is_vocab_leaf(n.split("."), p)}
+    ckpt = os.path.join(out_dir, "tp.ckpt")
+    tree = tr._checkpoint_tree()
+    if tr.is_main:
+        save_checkpoint(ckpt, tr.cfg, tree)
+    dist.barrier()
+    del tr, tree
+    KS.launches = KL.launches = 0
+    tm = {}
+    serve.main(mesh_serve_argv(ckpt, img_dir) + [
+        "--mesh_shape", "1", str(MESH_RANKS), "--mesh_axes", "data", MODEL_AXIS,
+        "--output", os.path.join(out_dir, "serve_tp.jsonl")], device=dev, timings=tm)
+    torch.cuda.synchronize()
+    out["c_serve"] = {"step": KS.launches, "loop": KL.launches, "route": tm["decode_route"],
+                      "seconds": tm["seconds"], "images": tm["images"]}
+    say(f"(c) TP serve: {out['c_serve']}")
+
+    # (b) one epoch of phase 9's dataset through the training CLI
+    log_root = os.path.join(out_dir, "fit")
+    argv = args_from_config(read_checkpoint_config(CKPT).replace(
+        precision=32, device_resident_data=False, resume=None, json=js, epochs=1,
+        val_percent=1.0, val_interval=1, mesh_shape=(MESH_RANKS,))) + ["--log_root", log_root]
+    KS.launches = KL.launches = 0
+    t0 = time.perf_counter()
+    metrics = train_main(argv, device=dev)
+    torch.cuda.synchronize()
+    out["b"] = {"metrics": metrics, "step": KS.launches, "loop": KL.launches,
+                "seconds": time.perf_counter() - t0}
+    say(f"(b) fit through the CLI: {out['b']}")
+    return out
+
+
+def mesh_nccl_job(out_dir):
+    """Phase 17 (d): one rank under NCCL, its collectives, three steps."""
+    import torch
+    import torch.distributed as dist
+    from sat_tpu_torch.parallel import mesh as PM
+    for x in (torch.arange(6.0, device=DEVICE).reshape(2, 3), torch.arange(6.0)):
+        got = (PM.all_gather(x)[0], PM.all_reduce(x))
+        check(all(torch.equal(y, x) and y.device == x.device for y in got),
+              f"mesh (d): NCCL's all-gather and all-reduce of one rank, {x.device} tensors")
+    print("[mesh rank 0] (d) NCCL's all-gather and all-reduce of cuda and cpu tensors: "
+          "equal, each on its own device", flush=True)
+    cfg = mesh_cfg_d()
+    tr, losses, state, _ = mesh_train(cfg, mesh_batches(cfg, MESH_STEPS, 190), None)
+    return {"backend": dist.get_backend(), "device": str(tr.device), "mesh": repr(tr.mesh),
+            "losses": losses, "state": state}
+
+
+def mesh_rank(argv):
+    """``chip_smoke.py --mesh-rank JOB OUT_DIR [ARGS]``: one rank of phase
+    17, joined from torchrun's variables (``maybe_initialize_distributed``);
+    writes its results to ``OUT_DIR/JOB_rank{r}.pt``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from sat_tpu_torch.parallel.mesh import maybe_initialize_distributed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    job, out_dir, *args = argv
+    check(maybe_initialize_distributed(), "a rank joins the process group")
+    res = {"pair": mesh_pair_job, "nccl": mesh_nccl_job}[job](out_dir, *args)
+    torch.save(res, os.path.join(out_dir, f"{job}_rank{dist.get_rank()}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_launch(job, n, out_dir, args=(), backend=None):
+    """Ranks 0 .. n - 1 of ``job`` as processes with torchrun's variables
+    (a free localhost port, ``$SAT_TORCH_DIST_BACKEND`` = ``backend``); a
+    rank that fails stops them all and fails the phase.  Returns each
+    rank's results and its output."""
+    import socket
+    import torch
+    from sat_tpu_torch.parallel.mesh import BACKEND_VAR
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               WORLD_SIZE=str(n), PYTHONPATH=ROOT)
+    env.pop(BACKEND_VAR, None)
+    if backend:
+        env[BACKEND_VAR] = backend
+    logs = [os.path.join(out_dir, f"{job}{r}.log") for r in range(n)]
+    procs = []
+    for r in range(n):
+        with open(logs[r], "wb") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-rank", job, out_dir,
+                 *args], env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), cwd=ROOT,
+                stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.perf_counter() + MESH_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() not in (None, 0) for p in procs)
+                    or time.perf_counter() > deadline):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    texts = []
+    for r, path in enumerate(logs):
+        with open(path, errors="replace") as f:
+            texts.append(f.read())
+        for line in texts[r].splitlines():
+            if line.startswith("[mesh rank"):
+                print(line, flush=True)
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            print(f"[mesh] {job} rank {r} exit {p.returncode}:\n{texts[r][-4000:]}",
+                  flush=True)
+    check(all(p.returncode == 0 for p in procs), f"mesh: every {job} rank exits 0")
+    return [torch.load(os.path.join(out_dir, f"{job}_rank{r}.pt"), weights_only=False)
+            for r in range(n)], texts
+
+
+def mesh_gaps(got, want):
+    """(max loss gap over its size, max weight gap over its leaf's scale,
+    that leaf) of (losses, state) against (losses, state); the running
+    statistics apart.  A leaf's scale is at least 1, so a small leaf is held
+    at tests/test_torch_mesh.py's absolute 1e-5: a finetuned BatchNorm
+    bias's gradient cancels to near zero (before a 1 x 1 convolution and
+    the next train-mode BatchNorm it is zero), and its few updates hold
+    summation-order noise (3e-7 after 3 steps in a CPU rehearsal)."""
+    loss = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
+               for g, w in zip(got[0], want[0]) for k in ("loss", "ce_loss"))
+    weights = {k: float((got[1][k].double() - w.double()).abs().max()
+                        / max(float(w.abs().max()), 1.0))
+               for k, w in want[1].items() if w.is_floating_point() and "running" not in k}
+    leaf = max(weights, key=weights.get)
+    return loss, weights[leaf], leaf
+
+
+def mesh_bn_err(state, ref_state, model):
+    """phase 8 (a)'s BatchNorm check of a state's running statistics
+    against a reference state's, through two copies of ``model``."""
+    a, b = copy.deepcopy(model), copy.deepcopy(model)
+    a.load_state_dict(state)
+    b.load_state_dict(ref_state)
+    return bn_stats_err(a.encoder, b.encoder)
+
+
+def mesh_phase(dev, js, card):
+    """Phase 17: the mesh of ranks on the one card (module docstring); ``js``
+    is phase 9's dataset."""
+    import torch
+    from sat_tpu_torch.decode.beam import greedy_decode
+    from sat_tpu_torch.kernels import greedy_loop as KL
+    from sat_tpu_torch.train.checkpoints import load_checkpoint, load_model_from_checkpoint
+
+    out, stamps = {}, {"references": time.perf_counter()}
+    tmp = tempfile.mkdtemp(prefix="sat_mesh_")
+    img_dir = os.path.join(tmp, "images")
+    os.makedirs(img_dir)
+    write_jpegs(img_dir, SERVE_N, seed=10)
+    # one process on the card: (a)'s steps, its greedy captions, (d)'s steps
+    cfg_a = mesh_cfg_a()
+    tr, *ref_a = mesh_train(cfg_a, mesh_batches(cfg_a, 2 * MESH_STEPS, 170), dev)
+    model_a = tr.model
+    del tr
+    ckpt_model, _ = load_model_from_checkpoint(CKPT, device=dev)
+    KL.launches = 0
+    ref_greedy = greedy_decode(ckpt_model.decoder, ckpt_model.cfg, ckpt_model.encode(
+        torch.from_numpy(scenes(B, 224, seed=0)).to(dev)), max_gen_length=S)
+    ref_greedy_loop = KL.launches
+    cfg_d = mesh_cfg_d()
+    ref_d = mesh_train(cfg_d, mesh_batches(cfg_d, MESH_STEPS, 190), dev)[1:3]
+
+    # the two gloo ranks: (a), (c), (b)
+    stamps["pair"] = time.perf_counter()
+    pair, _ = mesh_launch("pair", MESH_RANKS, tmp, [img_dir, js], backend="gloo")
+    stamps["nccl"] = time.perf_counter()
+    (nccl,), _ = mesh_launch("nccl", 1, tmp)
+    stamps["checks"] = time.perf_counter()
+
+    # (a) each rank against one process, and the ranks alike
+    a = [(r["a"]["losses"], r["a"]["state"]) for r in pair]
+    loss_gap, param_gap, leaf = mesh_gaps(a[0], ref_a[:2])
+    bn = mesh_bn_err(a[0][1], ref_a[1], model_a)
+    same = all(torch.equal(a[0][1][k], r[1][k]) for r in a[1:] for k in a[0][1])
+    print(f"[mesh] (a) {2 * MESH_STEPS} steps at n64, B {B_TRAIN} over {MESH_RANKS} gloo "
+          f"ranks on the card (dropout {MESH_DROPOUT}, the header's augment, the encoder "
+          f"finetuned from step {MESH_STEPS}) against one process: losses "
+          f"{[m['loss'] for m in a[0][0]]} vs {[m['loss'] for m in ref_a[0]]}, gap "
+          f"{loss_gap:.2e} of the loss (tol {MESH_LOSS_TOL}), weights {param_gap:.2e} of "
+          f"each leaf's scale (tol {MESH_PARAM_TOL}; worst {leaf}), BatchNorm variances "
+          f"{bn['var']['err']:.3g}, means {bn['mean']['err']:.3g} of phase 8's rtol "
+          f"(tol 1); the ranks bit for bit alike: {same}", flush=True)
+    check(loss_gap <= MESH_LOSS_TOL, f"mesh (a): losses within {MESH_LOSS_TOL} ({loss_gap})")
+    check(param_gap <= MESH_PARAM_TOL, f"mesh (a): weights within {MESH_PARAM_TOL} ({param_gap})")
+    check(bn["var"]["err"] <= 1 and bn["mean"]["err"] <= 1,
+          f"mesh (a): BatchNorm running statistics ({bn})")
+    check(same, "mesh (a): both ranks hold the same weights")
+    walls = {"one_process": ref_a[2][MESH_STEPS:],
+             **{f"rank{i}": r["a"]["wall_ms"][MESH_STEPS:] for i, r in enumerate(pair)}}
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    print(f"[time] (a) finetuned step wall ms (median of {MESH_STEPS}; {card}): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in med.items())
+          + f"; the {MESH_RANKS} ranks share the one card", flush=True)
+    tok = pair[0]["a_greedy"]["tokens"]           # every rank's rows, gathered
+    g_agree = (tok == ref_greedy.tokens.cpu()).all(-1).float().mean().item()
+    g_launch = [r["a_greedy"]["loop"] for r in pair]
+    print(f"[mesh] (a) DP greedy captioning of {B} images, {B // MESH_RANKS} per rank: "
+          f"loop-kernel calls per rank {g_launch} (one process: {ref_greedy_loop}), "
+          f"token agreement with one process {g_agree:.3f}", flush=True)
+    check(all(n == 1 for n in g_launch), "mesh (a): each rank's greedy ran the loop kernel")
+    check(g_agree >= 0.99, f"mesh (a): DP greedy tokens agree on {g_agree}")
+    out["a"] = {"loss_gap": loss_gap, "param_gap": param_gap, "bn": bn, "wall_ms": walls,
+                "median_wall_ms": med, "greedy_agreement": g_agree,
+                "greedy_loop_calls": g_launch}
+
+    # (c) TP against DP; the slices; the checkpoint; TP serve against one rank
+    c = {t: [(r[f"c_{t}"]["losses"], r[f"c_{t}"]["state"]) for r in pair] for t in ("dp", "tp")}
+    joined = dict(c["tp"][0][1])
+    for name, ax in (("decoder.embedding", 0), ("decoder.out_proj.w", 1),
+                     ("decoder.out_proj.b", 0)):
+        joined[name] = torch.cat([s[name] for _, s in c["tp"]], dim=ax)
+    c_loss, c_param, c_leaf = mesh_gaps((c["tp"][0][0], joined), c["dp"][0])
+    half = V_REF // MESH_RANKS
+    slices = [r["c_tp"]["slices"] for r in pair]
+    adam = [r["c_adam"] for r in pair]
+    want_adam = {"decoder.embedding": (half, 256), "decoder.out_proj.w": (256, half),
+                 "decoder.out_proj.b": (half,)}
+    print(f"[mesh] (c) mobilenet_v3_small (V {V_REF}, E 256, H 512, L 49, D 576), mesh "
+          f"(1, {MESH_RANKS}) data model against ({MESH_RANKS},) data, {MESH_STEPS} steps at "
+          f"B {MESH_B_MOBILE}: losses {[m['loss'] for m in c['tp'][0][0]]} vs "
+          f"{[m['loss'] for m in c['dp'][0][0]]}, gap {c_loss:.2e}, weights with the slices "
+          f"joined {c_param:.2e} ({c_leaf}); each rank's (embedding, out_proj w, b) {slices}; Adam "
+          f"moments {adam[0]}", flush=True)
+    check(c_loss <= MESH_LOSS_TOL and c_param <= MESH_PARAM_TOL,
+          f"mesh (c): TP equals DP ({c_loss}, {c_param})")
+    check(all(s == [(half, 256), (256, half), (half,)] for s in slices),
+          f"mesh (c): each rank holds {half} rows and columns ({slices})")
+    check(all(m == {n: {"exp_avg": w, "exp_avg_sq": w} for n, w in want_adam.items()}
+              for m in adam), f"mesh (c): Adam's moments are the slices' ({adam})")
+    _, tree = load_checkpoint(os.path.join(tmp, "tp.ckpt"))
+    full = (tuple(tree["params"]["decoder"]["embedding"].shape),
+            tuple(tree["params"]["decoder"]["out_proj"]["w"].shape))
+    check(full == ((V_REF, 256), (256, V_REF)), f"mesh (c): the checkpoint's tables {full}")
+    recs, calls, wall, tm = serve_run(mesh_serve_argv(os.path.join(tmp, "tp.ckpt"), img_dir),
+                                      os.path.join(tmp, "serve_one.jsonl"))
+    with open(os.path.join(tmp, "serve_tp.jsonl")) as f:
+        tp_recs = [json.loads(line) for line in f]
+    same_caps = sum(g.get("caption") == w.get("caption") for g, w in zip(tp_recs, recs))
+    srv = [r["c_serve"] for r in pair]
+    print(f"[mesh] (c) serve --mesh_shape 1 {MESH_RANKS} --mesh_axes data model of the TP "
+          f"checkpoint on phase 10's {len(recs)} files: {same_caps}/{len(recs)} captions "
+          f"equal to one rank's; routes {[s['route'] for s in srv]}, step-kernel calls per "
+          f"rank {[s['step'] for s in srv]} (one rank: {calls}), loop-kernel calls "
+          f"{[s['loop'] for s in srv]}; {srv[0]['seconds']:.2f} s against one rank's "
+          f"{tm['seconds']:.2f} s", flush=True)
+    check(len(tp_recs) == len(recs) == SERVE_N + 1 and same_caps == len(recs),
+          "mesh (c): TP serve writes one rank's captions")
+    check(all(s["route"] == "step kernels" and s["step"] > 0 and s["loop"] == 0 for s in srv),
+          f"mesh (c): TP serve ran the step kernels ({srv})")
+    out["c"] = {"loss_gap": c_loss, "param_gap": c_param, "slices": slices[0],
+                "serve_equal": same_caps, "serve_step_calls": [s["step"] for s in srv],
+                "serve_s": srv[0]["seconds"], "serve_one_rank_s": tm["seconds"],
+                "wall_ms": {t: pair[0][f"c_{t}"]["wall_ms"] for t in ("dp", "tp")}}
+
+    # (b) the CLI's fit on two ranks: one version directory, one writer
+    b = [r["b"] for r in pair]
+    base = os.path.join(tmp, "fit", cfg_a.name)
+    versions = sorted(os.listdir(base))
+    files = sorted(os.listdir(os.path.join(base, versions[0])))
+    events = [f for f in files if f.startswith("events.") or f == "metrics.jsonl"]
+    print(f"[mesh] (b) python -m sat_tpu_torch.train --mesh_shape {MESH_RANKS} on phase 9's "
+          f"{FIT_TRAIN} images, 1 epoch: versions {versions}, files {files}; validation "
+          f"{b[0]['metrics']} on rank 0, equal on every rank: "
+          f"{all(x['metrics'] == b[0]['metrics'] for x in b)}; step-kernel calls per rank "
+          f"{[x['step'] for x in b]}; {b[0]['seconds']:.1f} s", flush=True)
+    check(versions == ["version_0"] and "last.ckpt" in files and len(events) == 1,
+          f"mesh (b): one version directory, one writer ({versions}, {files})")
+    check(all(x["metrics"] == b[0]["metrics"] for x in b) and "bleu4" in b[0]["metrics"],
+          "mesh (b): every rank's validation metrics alike")
+    check(all(x["step"] > 0 for x in b), "mesh (b): each rank's validation ran the step kernels")
+    out["b"] = {"metrics": b[0]["metrics"], "step_calls": [x["step"] for x in b],
+                "seconds": b[0]["seconds"], "files": files}
+
+    # (d) NCCL, one rank: bit for bit the no-group trainer's
+    d_same = nccl["losses"] == ref_d[0] and all(
+        torch.equal(nccl["state"][k], ref_d[1][k]) for k in ref_d[1])
+    print(f"[mesh] (d) one rank from torchrun's variables: backend {nccl['backend']}, "
+          f"{nccl['device']}, {nccl['mesh']}; {MESH_STEPS} steps bit for bit the no-group "
+          f"trainer's: {d_same}", flush=True)
+    check(nccl["backend"] == "nccl" and d_same, "mesh (d): NCCL's rank equals one process")
+    out["d"] = {"backend": nccl["backend"], "bit_for_bit": d_same}
+    out["launches"] = {"validation_step_calls": out["b"]["step_calls"],
+                       "tp_serve_step_calls": out["c"]["serve_step_calls"],
+                       "dp_greedy_loop_calls": g_launch}
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = phase_seconds(stamps, 17)
+    return out
+
+
 def cpu_fit():
     """Phase 9 (d) on the CPU (``--cpu-fit``): the same dataset and CLI
     run, printing the epoch-3 / epoch-1 loss ratio."""
@@ -3205,10 +3660,17 @@ def main():
               f"phase 10 (a) keeps the step kernels ({serve_a['decode_route']}, "
               f"{serve_a['step_calls']} calls, {SERVE_A_STEP_CALLS} in PR 15)")
         report["tools"] = tools_phase(dev, report["fit"]["json"], card)
+        # -- 17. the mesh of ranks: data parallelism and vocab-dim TP -----------------
+        stamps["mesh"] = time.perf_counter()
+        report["mesh"] = mesh_phase(dev, report["fit"]["json"], card)
+    mesh_calls = report["mesh"]["launches"]
     kernels[0].update(launches_search=report["tools"]["a"]["step_calls_per_trial"],
                       launches_serve=report["serve"]["a"]["step_calls"],
                       launches_evaluate=report["serve"]["d"]["step_calls"],
-                      launches_resumed_fit=report["resume"]["b_step_calls"])
+                      launches_resumed_fit=report["resume"]["b_step_calls"],
+                      launches_mesh_validation=mesh_calls["validation_step_calls"],
+                      launches_mesh_tp_serve=mesh_calls["tp_serve_step_calls"])
+    kernels[1].update(launches_mesh_dp_greedy=mesh_calls["dp_greedy_loop_calls"])
     stamps["end"] = time.perf_counter()
     names = list(stamps)
     report["phase_s"] = {a: stamps[b] - stamps[a] for a, b in zip(names, names[1:])}
@@ -3222,4 +3684,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(sys.argv[2:]))
     sys.exit(cpu_fit() if sys.argv[1:] == ["--cpu-fit"] else main())

@@ -11,7 +11,7 @@ Public API (lazy: importing sat_tpu_torch does not import torch), the JAX
 package's names:
 
     sat_tpu_torch.SATConfig / config_from_args   typed config, train.py's flags
-    sat_tpu_torch.Trainer                        training engine (one device)
+    sat_tpu_torch.Trainer                        training engine (DP / vocab-TP ranks)
     sat_tpu_torch.SATModel                       encoder zoo + decoder bundle
     sat_tpu_torch.beam_search / greedy_decode    batched decoding
     sat_tpu_torch.load_any_checkpoint (SAT-TPU or Lightning .ckpt) /
@@ -20,9 +20,8 @@ package's names:
     sat_tpu_torch.preprocess_karpathy / make_synthetic_dataset /
         make_learnable_dataset
     sat_tpu_torch.score_captions                 corpus BLEU/GLEU/cossim/perplexity
-
-``create_mesh`` (the device mesh for data and vocab-dim tensor parallelism)
-is not ported yet (``ROADMAP.md`` §1 item 11).
+    sat_tpu_torch.create_mesh                    mesh of torch.distributed ranks
+                                                 for DP / vocab-TP
 """
 
 from importlib import import_module
@@ -46,6 +45,7 @@ _LAZY = {
     "make_synthetic_dataset": ".data.preprocess",
     "make_learnable_dataset": ".data.preprocess",
     "score_captions": ".evalx.metrics",
+    "create_mesh": ".parallel.mesh",
 }
 
 __all__ = ["SATConfig", "config_from_args", "Vocab", "__version__",

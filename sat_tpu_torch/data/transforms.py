@@ -40,6 +40,7 @@ import torch
 from ..config import SATConfig
 from ..ops.image_ops import (adjust_brightness, adjust_contrast, adjust_hue,
                              adjust_saturation, affine_grid, grid_sample_bilinear)
+from ..parallel.mesh import ONE_RANK, Mesh
 
 Augment = Callable[[torch.Generator, torch.Tensor], torch.Tensor]
 Draws = Dict[str, torch.Tensor]
@@ -201,10 +202,12 @@ def separable_resample(x: torch.Tensor, py: torch.Tensor, px: torch.Tensor
     return cols.reshape(b, ow, oh, c).transpose(1, 2)           # (B, OH, OW, C)
 
 
-def build_train_augment(cfg: SATConfig) -> Augment:
+def build_train_augment(cfg: SATConfig, mesh: Mesh = ONE_RANK) -> Augment:
     """augment(generator, images uint8 (B, S, S, 3)) -> images in [0, 1]
     plus noise, on the images' device, in float32 (bf16 at precision 16
-    without the optical warps)."""
+    without the optical warps).  On a ``mesh`` of ranks the images are
+    this rank's rows: the draws are made once for the global batch, as JAX
+    draws them, and cut to those rows."""
     size = cfg.input_size
     on = _settings(cfg)
     dtype = torch.bfloat16 if cfg.precision == 16 else torch.float32
@@ -215,7 +218,8 @@ def build_train_augment(cfg: SATConfig) -> Augment:
         x = images.to(dtype) / 255.0
         b, dev = x.shape[0], x.device
         hw = (size, size) if on["crop"] or on["optical"] else tuple(x.shape[1:3])
-        d = _draws(generator, b, hw, cfg, dev)
+        d = {k: mesh.rows(v) for k, v in
+             _draws(generator, b * mesh.size, hw, cfg, dev).items()}
         if on["optical"]:
             # crop . flip . warp as one homography, one resampling pass
             theta = (_rrc_theta(d["area"], d["log_ratio"], d["crop_x"], d["crop_y"])

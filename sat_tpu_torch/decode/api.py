@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..config import SATConfig
+from ..parallel.mesh import ONE_RANK, Mesh
 from .beam import BeamResult, beam_search
 
 
@@ -32,16 +33,17 @@ def caption_from_annotations(
         rescore_method: Optional[str] = None, rescore_reward: float = 0.5,
         return_all: bool = False,
         generator: Optional[torch.Generator] = None,
-        early_exit: bool = False, fused: Optional[bool] = None):
+        early_exit: bool = False, fused: Optional[bool] = None,
+        mesh: Mesh = ONE_RANK):
     """Decode annotations (B, L, D) -> (captions, scores, alphas,
     perplexity); ``return_all`` gives every hypothesis per image, best
-    first.  ``fused`` as in ``beam_search``."""
+    first.  ``fused`` and ``mesh`` as in ``beam_search``."""
     res = beam_search(
         params, cfg, annotations, beamk=beamk, max_gen_length=max_gen_length,
         temperature=temperature, sample_method=sample_method,
         sample_topk=sample_topk, decoder_noise=decoder_noise,
         rescore_method=rescore_method, rescore_reward=rescore_reward,
-        generator=generator, fused=fused, early_exit=early_exit)
+        generator=generator, fused=fused, early_exit=early_exit, mesh=mesh)
     return unpack_beam_result(res, grid_hw, return_all)
 
 

@@ -9,7 +9,14 @@ rebuilt after the loop from append-only records by one backwards walk over
 the backpointers; rescoring (LN, WR, BAR) and perplexity come last.
 Sampling (``multinomial``, ``topk``) is Gumbel-top-k over the same
 log-weights.  ``greedy_decode`` is beam width 1 with a plain argmax.
-``BeamResult`` keeps the JAX field shapes."""
+``BeamResult`` keeps the JAX field shapes.
+
+On a mesh of ranks (``parallel/mesh.py``; the ``mesh`` arguments) each
+rank decodes its rows of the global batch: the noise is drawn at the
+global shape and cut to them, ``early_exit`` stops when every rank's rows
+have finished, and a decoder that holds a vocab TP slice embeds and
+projects over the model axis (the greedy loop kernel, whose selection
+holds the whole vocabulary per row, is not taken there)."""
 
 from __future__ import annotations
 
@@ -26,8 +33,9 @@ from ..kernels.greedy_loop import (_special, greedy_loop_decode,
 from ..models.decoder import (_linear, attention_precompute, beta_gate,
                               capped_embedding, decoder_step, deep_output,
                               embed_tokens, init_lstm_state,
-                              init_lstm_state_beams)
+                              init_lstm_state_beams, vocab_sliced)
 from ..ops.lstm import lstm_stack_step
+from ..parallel.mesh import ONE_RANK, Mesh
 
 STAY_SCORE = 1e9   # a finished slot's one candidate: always wins the top-k
 
@@ -97,6 +105,18 @@ def normal_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
     return torch.randn(shape, generator=generator, device=device)
 
 
+def _noise(fn, shape, generator: torch.Generator, device, mesh: Mesh,
+           axis: int = 0) -> torch.Tensor:
+    """``fn(shape, generator, device)``; on a mesh drawn for the global
+    batch (on ``axis``) and cut to this rank's rows."""
+    return mesh.draw(lambda full: fn(full, generator, device), shape, axis)
+
+
+def _all_finished(finished: torch.Tensor, mesh: Mesh) -> bool:
+    """Every row finished, on every rank of the mesh (one host sync)."""
+    return mesh.all_true(bool(finished.all()))
+
+
 def _rescore(scores: torch.Tensor, lf: torch.Tensor, bar: torch.Tensor,
              rescore_method: Optional[str], rescore_reward: float
              ) -> torch.Tensor:
@@ -130,7 +150,7 @@ LOOP_ROUTE, STEP_ROUTE = "loop kernel", "step kernels"
 
 def decode_route(device: torch.device, cfg: SATConfig, L: int, *,
                  noisy: bool = False, greedy: bool = False,
-                 itemsize: int = 4) -> str:
+                 itemsize: int = 4, vocab_sharded: bool = False) -> str:
     """The implementation ``fused=None`` takes, named with its reason.
 
     On a CUDA device this is JAX's rule (``use_fused = fused and
@@ -138,7 +158,9 @@ def decode_route(device: torch.device, cfg: SATConfig, L: int, *,
     the kernels' own gates: greedy decoding takes the loop kernel where
     ``greedy_loop_supported`` holds, else the step kernels where
     ``fused_step_supported`` holds; beam search takes the step kernels
-    where that holds and the call draws no hidden-state noise.  Everything
+    where that holds and the call draws no hidden-state noise.  A decoder
+    holding a vocab TP slice (``vocab_sharded``) skips the loop kernel,
+    whose selection holds the whole vocabulary per row.  Everything
     else is the plain path, named ``"plain (<reason>)"``.  The rule reads
     only the config and the call's arguments: a kernel that fails to build
     or launch fails the run, it never turns into the plain path."""
@@ -148,7 +170,7 @@ def decode_route(device: torch.device, cfg: SATConfig, L: int, *,
         return f"plain (decoder_layers {cfg.decoder_layers})"
     if noisy:
         return "plain (decoder_noise)"
-    if greedy and greedy_loop_supported(cfg, L, itemsize):
+    if greedy and not vocab_sharded and greedy_loop_supported(cfg, L, itemsize):
         return LOOP_ROUTE
     if fused_step_supported(cfg, L):
         return STEP_ROUTE
@@ -156,14 +178,20 @@ def decode_route(device: torch.device, cfg: SATConfig, L: int, *,
 
 
 def select_fused(fused: Union[None, bool, str], device: torch.device,
-                 cfg: SATConfig, L: int, itemsize: int) -> Union[bool, str]:
+                 cfg: SATConfig, L: int, itemsize: int,
+                 vocab_sharded: bool = False) -> Union[bool, str]:
     """The implementation ``fused`` names for annotations on ``device``:
     ``None`` is ``decode_route``'s greedy route.  An explicit kernel path
-    raises where that kernel's gate fails (both need one LSTM layer)."""
+    raises where that kernel's gate fails (both need one LSTM layer; the
+    loop kernel, the whole vocabulary)."""
     if fused is None:
-        route = decode_route(device, cfg, L, greedy=True, itemsize=itemsize)
+        route = decode_route(device, cfg, L, greedy=True, itemsize=itemsize,
+                             vocab_sharded=vocab_sharded)
         return "loop" if route == LOOP_ROUTE else route == STEP_ROUTE
     if fused == "loop":
+        if vocab_sharded:
+            raise ValueError("greedy loop kernel: the decoder holds a vocab "
+                             "slice; the kernel selects over the whole vocabulary")
         if not greedy_loop_supported(cfg, L, itemsize):
             raise ValueError("greedy loop kernel: decoder_layers must be 1 and "
                              "one row's state must fit shared memory")
@@ -179,7 +207,7 @@ def greedy_decode(params, cfg: SATConfig, annotations: torch.Tensor, *,
                   fused: Union[None, bool, str] = None,
                   early_exit: bool = False,
                   rescore_method: Optional[str] = None,
-                  rescore_reward: float = 0.5) -> BeamResult:
+                  rescore_reward: float = 0.5, mesh: Mesh = ONE_RANK) -> BeamResult:
     """Greedy captioning: beam width 1 with a plain per-step argmax.
 
     ``fused`` chooses the implementation, as in JAX: ``False`` is the plain
@@ -200,11 +228,12 @@ def greedy_decode(params, cfg: SATConfig, annotations: torch.Tensor, *,
     kernels ignore it: they stop on the device, once their count of finished
     rows reaches the batch.
 
-    annotations (B, L, D) -> BeamResult with k = 1."""
+    annotations (B, L, D) -> BeamResult with k = 1; on a ``mesh``, this
+    rank's rows (module docstring)."""
     annotations = annotations.contiguous()
     L, S = annotations.shape[1], max_gen_length
     fused = select_fused(fused, annotations.device, cfg, L,
-                         annotations.element_size())
+                         annotations.element_size(), vocab_sliced(params, cfg))
     att_enc = attention_precompute(params, annotations)
     h, c = init_lstm_state(params, annotations, cfg)
 
@@ -222,16 +251,18 @@ def greedy_decode(params, cfg: SATConfig, annotations: torch.Tensor, *,
             t, h1, c1, _, alpha = fused_decoder_step(
                 lw, cfg, prev_embed.contiguous(), h[0].contiguous(),
                 c[0].contiguous(), annotations, att_enc)
-            return fused_output_logits(params, cfg, t, emb), h1[None], c1[None], alpha
+            return (fused_output_logits(params, cfg, t, emb, mesh),
+                    h1[None], c1[None], alpha)
     else:
         def step(prev_embed, h, c):
             logits, h1, c1, _, alpha = decoder_step(
-                params, cfg, prev_embed, h, c, annotations, att_enc)
+                params, cfg, prev_embed, h, c, annotations, att_enc, mesh=mesh)
             return logits, h1, c1, alpha
 
-    out = greedy_scan(step, lambda tok: embed_tokens(params, tok, cfg), cfg,
+    out = greedy_scan(step, lambda tok: embed_tokens(params, tok, cfg, mesh), cfg,
                       h, c, L, max_gen_length=S, temperature=temperature,
-                      early_exit=early_exit)
+                      early_exit=early_exit,
+                      all_finished=lambda f: _all_finished(f, mesh))
     return _result(*out, S, rescore_method, rescore_reward)
 
 
@@ -270,7 +301,7 @@ def beam_search(params, cfg: SATConfig, annotations: torch.Tensor, *,
                 rescore_reward: float = 0.5,
                 generator: Optional[torch.Generator] = None,
                 fused: Optional[bool] = None,
-                early_exit: bool = False) -> BeamResult:
+                early_exit: bool = False, mesh: Mesh = ONE_RANK) -> BeamResult:
     """Batched beam or sampled search.  annotations (B, L, D) -> BeamResult
     with (B, k) leading dims.
 
@@ -292,7 +323,8 @@ def beam_search(params, cfg: SATConfig, annotations: torch.Tensor, *,
 
     ``early_exit=True`` stops once every slot of every image has finished,
     at one host sync per step on the card; the tokens, scores, lengths and
-    the alphas of rows below each length equal the fixed-length run's."""
+    the alphas of rows below each length equal the fixed-length run's.
+    On a ``mesh``, this rank's rows (module docstring)."""
     if sample_method not in ("beam", "multinomial", "topk"):
         raise ValueError(f"unknown sample_method {sample_method!r}")
     rescore_method = normalize_rescore_method(rescore_method)
@@ -324,7 +356,7 @@ def beam_search(params, cfg: SATConfig, annotations: torch.Tensor, *,
                 lw, cfg, prev_embed.contiguous(),
                 h[0].reshape(b * k, -1).contiguous(),
                 c[0].reshape(b * k, -1).contiguous(), annot_flat, ae_flat)
-            return (fused_output_logits(params, cfg, tproj, emb),
+            return (fused_output_logits(params, cfg, tproj, emb, mesh),
                     h1.reshape(h.shape), c1.reshape(c.shape), alpha)
     else:
         def step(prev_embed, h, c, t):
@@ -341,12 +373,12 @@ def beam_search(params, cfg: SATConfig, annotations: torch.Tensor, *,
             if noisy:
                 # in the state's type: JAX's float32 draw turns a bf16
                 # state float32, which its scan's carry refuses (TypeError)
-                h_in = h + (normal_noise(h.shape, generator, dev) * (
-                    decoder_noise / (t + 1.0))).to(h.dtype)
+                h_in = h + (_noise(normal_noise, h.shape, generator, dev, mesh,
+                                   axis=1) * (decoder_noise / (t + 1.0))).to(h.dtype)
             h1, c1 = lstm_stack_step(x, h_in.reshape(h.shape[0], b * k, -1),
                                      c.reshape(c.shape[0], b * k, -1),
                                      params.lstm)
-            logits = deep_output(params, cfg, prev_embed, h1[-1], zt)
+            logits = deep_output(params, cfg, prev_embed, h1[-1], zt, mesh=mesh)
             return logits, h1.reshape(h.shape), c1.reshape(c.shape), alpha
 
     always = torch.zeros(v, device=dev)
@@ -370,7 +402,7 @@ def beam_search(params, cfg: SATConfig, annotations: torch.Tensor, *,
     alpha_rec = torch.zeros(S + 1, b, k, L, device=dev)
 
     for t in range(S + 1):
-        prev_embed = embed_tokens(params, cur_tok.reshape(b * k), cfg)
+        prev_embed = embed_tokens(params, cur_tok.reshape(b * k), cfg, mesh)
         logits, h_new, c_new, alpha = step(prev_embed, h, c, t)
         scaled = logits.float() / temps[t % len(temps)]          # (B k, V)
         mask = step0 if t == 0 else always
@@ -398,11 +430,11 @@ def beam_search(params, cfg: SATConfig, annotations: torch.Tensor, *,
             elif sample_method == "multinomial":
                 row = 20.0 * seq_scores / tf
                 sel = (row - torch.logsumexp(row, dim=-1, keepdim=True)
-                       + gumbel_noise(row.shape, generator, dev))
+                       + _noise(gumbel_noise, row.shape, generator, dev, mesh))
             else:   # topk: sample among each row's sample_topk best
                 kth = topk_small(seq_scores, sample_topk)[0][..., -1:]
                 sel = torch.where(seq_scores >= kth, seq_scores / tf, NEG_INF)
-                sel = sel + (gumbel_noise(sel.shape, generator, dev)
+                sel = sel + (_noise(gumbel_noise, sel.shape, generator, dev, mesh)
                              * (sel > NEG_INF / 2))
             stay = torch.full((b, k, v), NEG_INF, device=dev)
             stay[:, :, pad_i] = STAY_SCORE
@@ -429,7 +461,7 @@ def beam_search(params, cfg: SATConfig, annotations: torch.Tensor, *,
         tok_rec[t] = cur_tok
         sparent_rec[t] = sparent
         alpha_rec[t] = alpha.reshape(b, k, L).float()   # raw, finished slots too
-        if early_exit and bool(finished.all()):
+        if early_exit and _all_finished(finished, mesh):
             break
 
     # walk the ancestor chain back from the final slots: at step t, anc is

@@ -10,7 +10,11 @@ Takes a ``SATTPU1`` or a reference Lightning ``.ckpt`` (auto-detected,
         --json 128k256.json --split test --beamk 5 --rescore_method LN
 
 ``main(argv, device="cpu")`` runs on the CPU; by default it runs on the CUDA
-card (beam search through the step kernels) and raises without one.
+card (beam search through the step kernels) and raises without one.  Under
+a process group (``torchrun --nproc_per_node N -m
+sat_tpu_torch.evalx.evaluate ...``) each batch splits over the ranks, as
+JAX's shards over its mesh: each rank captions its rows, the captions are
+gathered, and every rank scores the split.
 """
 
 from __future__ import annotations
@@ -30,17 +34,21 @@ def evaluate(model, ds, batch_size: int = 64, beamk: int = 5,
              rescore_method: Optional[str] = "LN", rescore_reward: float = 0.5,
              limit_batches: Optional[int] = None, verbose: bool = True,
              early_exit: bool = True, return_captions: bool = False,
-             timings: Optional[Dict[str, float]] = None):
+             timings: Optional[Dict[str, float]] = None, mesh=None):
     """Decode the split with beam search on the model's device, then score
     it once as a corpus.  ``return_captions`` also returns the best-beam
     token-id lists in split order; a ``timings`` dict receives the seconds
-    spent on data, decode (encode, beam search, fetch) and score."""
+    spent on data, decode (encode, beam search, fetch) and score.  ``mesh``
+    (default: every rank of the process group, one without one) splits
+    each batch, padded to a multiple of its size, over its ranks."""
     from ..data.dataset import CaptionLoader
     from ..data.transforms import val_preprocess
     from ..evalx.metrics import score_captions
+    from ..parallel.mesh import create_mesh
 
     loader = CaptionLoader(ds, min(batch_size, len(ds)), model.cfg.input_size,
                            shuffle=False, train=False, drop_last=False)
+    mesh = mesh or create_mesh()
     dev = next(model.parameters()).device
     if verbose:
         print(f"decode route: {model.decode_route()}", file=sys.stderr)
@@ -53,7 +61,8 @@ def evaluate(model, ds, batch_size: int = 64, beamk: int = 5,
     all_caps, all_enc, all_lens, all_ppl = [], [], [], []
     n_images = 0
     t0 = time.time()
-    bs = loader.batch_size   # the fixed batch; the tail is padded to it
+    # the fixed batch, a multiple of the mesh; the tail is padded to it
+    bs = -(-loader.batch_size // mesh.size) * mesh.size
     t_max = loader.ds.encoded_captions.shape[2]
     batches = iter(loader)
     for i in range(len(loader)):
@@ -68,10 +77,13 @@ def evaluate(model, ds, batch_size: int = 64, beamk: int = 5,
         if n < bs:  # pad the tail to the fixed batch
             imgs = np.concatenate([imgs, np.repeat(imgs[-1:], bs - n, 0)])
         caps, _, _, ppl = model.caption(
-            val_preprocess(torch.from_numpy(imgs).to(dev)), beamk=beamk,
+            val_preprocess(torch.from_numpy(mesh.rows(imgs)).to(dev)), beamk=beamk,
             max_gen_length=max_gen_length, temperature=temperature,
             rescore_method=rescore_method, rescore_reward=rescore_reward,
-            early_exit=early_exit)
+            early_exit=early_exit, mesh=mesh)
+        if mesh.size > 1:   # every rank's rows, in order
+            parts = mesh.gather_objects((caps, ppl))
+            caps, ppl = (sum((list(q[j]) for q in parts), []) for j in range(2))
         tm["decode"] += time.perf_counter() - t
         all_caps.extend(caps[:n])
         all_ppl.extend(ppl[:n])
@@ -104,6 +116,7 @@ def evaluate(model, ds, batch_size: int = 64, beamk: int = 5,
 def main(argv: Optional[Sequence[str]] = None,
          device: Union[str, torch.device, None] = None) -> Dict[str, float]:
     from ..data.dataset import CaptionDataset
+    from ..parallel.mesh import create_mesh, maybe_initialize_distributed
     from ..train.checkpoints import load_any_checkpoint
 
     p = argparse.ArgumentParser(description="evaluate a checkpoint on a split")
@@ -123,6 +136,8 @@ def main(argv: Optional[Sequence[str]] = None,
                         "(exact). Default on; --no_early_exit reverts")
     p.add_argument("--no_early_exit", dest="early_exit", action="store_false")
     a = p.parse_args(argv)
+    maybe_initialize_distributed()
+    mesh = create_mesh()
 
     model = load_any_checkpoint(a.checkpoint, device=device)
     ds = CaptionDataset(a.json or model.cfg.json, a.split)
@@ -132,9 +147,10 @@ def main(argv: Optional[Sequence[str]] = None,
                        temperature=a.temperature, rescore_method=rescore,
                        rescore_reward=a.rescore_reward,
                        limit_batches=a.limit_batches,
-                       early_exit=a.early_exit)
-    print(json.dumps({"split": a.split, "beamk": a.beamk, **
-                      {k: round(v, 5) for k, v in metrics.items()}}))
+                       early_exit=a.early_exit, mesh=mesh)
+    if mesh.rank == 0:
+        print(json.dumps({"split": a.split, "beamk": a.beamk, **
+                          {k: round(v, 5) for k, v in metrics.items()}}))
     return metrics
 
 

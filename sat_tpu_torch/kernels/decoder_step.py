@@ -27,6 +27,8 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..config import SATConfig
+from ..models.decoder import project_vocab
+from ..parallel.mesh import ONE_RANK, Mesh
 from . import _build
 
 # wrapper calls that launched the kernels, since import (read and reset by
@@ -315,13 +317,12 @@ def fused_decoder_step(lw: LoopWeights, cfg: SATConfig,
 
 
 def fused_output_logits(params, cfg: SATConfig, t: torch.Tensor,
-                        embedding: torch.Tensor) -> torch.Tensor:
+                        embedding: torch.Tensor, mesh: Mesh = ONE_RANK
+                        ) -> torch.Tensor:
     """The vocab projection left outside the kernel: one matmul, float32
-    logits.  ``embedding`` is the table capped at ``embed_norm``
-    (decoder.capped_embedding), used when the output is tied to it."""
-    if cfg.weight_tying and cfg.deep_output:
-        return (t @ embedding.to(t.dtype).T).float()
-    out = (t @ params.out_proj.w.to(t.dtype)).float()
-    if "b" in params.out_proj:
-        out = out + params.out_proj.b.float()
-    return out
+    logits (``models.decoder.project_vocab``, the bias added in float32).
+    ``embedding`` is the table capped at ``embed_norm``
+    (decoder.capped_embedding), used when the output is tied to it; a vocab
+    TP slice is joined over ``mesh``.  The kernels' pre-projection ``t`` is
+    the same on either side."""
+    return project_vocab(params, cfg, t, embedding, mesh, float_bias=True)

@@ -84,7 +84,7 @@ def _special(cfg: SATConfig) -> Tuple[int, int, int, int]:
 
 def greedy_scan(step, embed, cfg: SATConfig, h, c, L: int, *,
                 max_gen_length: int, temperature: float = 1.0,
-                early_exit: bool = False):
+                early_exit: bool = False, all_finished=None):
     """The greedy selection loop, step by step, with the XLA scan's semantics
     (the kernels', and that of greedy_decode's plain and step-kernel paths).
 
@@ -94,7 +94,8 @@ def greedy_scan(step, embed, cfg: SATConfig, h, c, L: int, *,
     The token's log-prob is scaled[tok] - logsumexp(scaled) over the unmasked
     row; argmax ties go to the lower index.  Finished rows append PAD, keep
     their score and get zero alphas.  ``early_exit`` stops once every row has
-    finished (one host sync per step on the card); the outputs are the same.
+    finished (one host sync per step on the card; ``all_finished(finished)``
+    decides where given, as on a mesh of ranks); the outputs are the same.
     Returns (tokens (B, S+2) int32, alphas (B, S+1, L) float32,
     scores (B,) float32, flen (B,) int32, finished (B,) bool)."""
     b, dev, S = h.shape[-2], h.device, max_gen_length
@@ -124,7 +125,8 @@ def greedy_scan(step, embed, cfg: SATConfig, h, c, L: int, *,
         flen = torch.where(newly, t, flen)
         finished = finished | newly
         tokens[:, t + 1] = token.to(torch.int32)
-        if early_exit and bool(finished.all()):
+        if early_exit and (all_finished(finished) if all_finished
+                           else bool(finished.all())):
             break
     return tokens, alphas, scores, flen, finished
 

@@ -18,11 +18,14 @@ same math as normalise -> stem conv, which is what runs here."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence, Tuple
+import contextlib
+from typing import Callable, Dict, Iterator, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.mesh import ONE_RANK, Mesh
 
 
 FLAX_MOMENTUM = 0.9
@@ -48,15 +51,32 @@ class BatchNorm(nn.BatchNorm2d):
     training casts the weights, not the statistics) is normalised as flax
     does it: the statistics at float32, the whole normalisation in float32
     on the promoted input, weight and bias, and one rounding back to the
-    input's type."""
+    input's type.
+
+    With ``mesh`` set (``batch_stats_over``) and more than one rank, train
+    mode takes the statistics of the global batch, as JAX's GSPMD step
+    does: ``sum x``, ``sum x^2`` and the count are summed over every rank
+    through autograd (a finetuned encoder backpropagates through them), so
+    the running statistics move alike on every rank."""
+
+    mesh = ONE_RANK
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training and x.dtype == self.running_mean.dtype:
             return super().forward(x)
         xs = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
-        if self.training:
+        if self.training and self.mesh.size > 1:
+            count = torch.full((1,), xs.numel() // xs.shape[1], dtype=xs.dtype,
+                               device=xs.device)
+            sums = self.mesh.sum(torch.cat([xs.sum(dim=(0, 2, 3)),
+                                            (xs * xs).sum(dim=(0, 2, 3)), count]))
+            c = xs.shape[1]
+            mean = sums[:c] / sums[-1]
+            var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
+        elif self.training:
             mean = xs.mean(dim=(0, 2, 3))
             var = torch.clamp((xs * xs).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if self.training:
             with torch.no_grad():
                 for run, new in ((self.running_mean, mean), (self.running_var, var)):
                     run.mul_(FLAX_MOMENTUM).add_(new, alpha=1.0 - FLAX_MOMENTUM)
@@ -65,6 +85,20 @@ class BatchNorm(nn.BatchNorm2d):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xs - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def batch_stats_over(module: nn.Module, mesh: Mesh) -> Iterator[None]:
+    """Within the block, every ``BatchNorm`` of ``module`` in train mode
+    takes the statistics of the global batch over ``mesh``'s ranks."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.mesh = mesh
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.mesh = ONE_RANK
 
 
 def _bn(ch: int) -> BatchNorm:

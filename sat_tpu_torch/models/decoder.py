@@ -6,7 +6,13 @@ the JAX parameter dict (``att_dec.w``, ``lstm.layer_0.w_ih``, ...).  Linear
 weights keep the JAX layout ``w (in, out)`` and are applied as ``x @ w``.
 Annotations are ``(B, L, D)``; ``h``/``c`` are ``(layers, B, H)``.  Dropout
 draws from a ``torch.Generator``; without one it is off, as JAX's is without
-a key."""
+a key.
+
+On a ``parallel.mesh.Mesh`` (the ``mesh`` arguments) the batch is this
+rank's rows: dropout masks are drawn at the global shape and cut to them,
+and where vocab TP gave the decoder a slice of the tables
+(``vocab_sliced``), the lookup and the output projection gather over the
+model axis."""
 
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from torch import nn
 
 from ..config import SATConfig
 from ..ops.lstm import init_lstm_params, lstm_stack_step
+from ..parallel.mesh import ONE_RANK, Mesh
 
 
 class ParamTree(nn.Module):
@@ -82,14 +89,17 @@ def init_decoder_params(generator: torch.Generator, cfg: SATConfig
     return ParamTree(params)
 
 
-def _dropout(x: torch.Tensor, rate: float,
-             generator: Optional[torch.Generator]) -> torch.Tensor:
+def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+             mesh: Mesh = ONE_RANK) -> torch.Tensor:
     """Inverted dropout: keep each element with probability 1 - rate and
-    scale it by 1 / (1 - rate).  Off at rate 0 or without a generator."""
+    scale it by 1 / (1 - rate).  Off at rate 0 or without a generator.  On
+    a mesh the mask is drawn for the global batch (x's rows times the mesh
+    size) and cut to this rank's rows."""
     if rate <= 0.0 or generator is None:
         return x
-    keep = torch.rand(x.shape, device=x.device, generator=generator) < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate), 0.0)
+    u = mesh.draw(lambda shape: torch.rand(shape, device=x.device, generator=generator),
+                  x.shape)
+    return torch.where(u < 1.0 - rate, x / (1.0 - rate), 0.0)
 
 
 def _linear(p: ParamTree, x: torch.Tensor) -> torch.Tensor:
@@ -114,13 +124,20 @@ def capped_embedding(params: ParamTree, cfg: SATConfig) -> torch.Tensor:
     return _embed_cap(params.embedding, cfg.embed_norm)
 
 
-def embed_tokens(params: ParamTree, ids: torch.Tensor, cfg: SATConfig
-                 ) -> torch.Tensor:
+def vocab_sliced(params: ParamTree, cfg: SATConfig) -> bool:
+    """Whether the decoder holds a vocab TP slice of its tables."""
+    return params.embedding.shape[0] != cfg.vocab_size
+
+
+def embed_tokens(params: ParamTree, ids: torch.Tensor, cfg: SATConfig,
+                 mesh: Mesh = ONE_RANK) -> torch.Tensor:
     """Embedding lookup with the optional max-L2-norm cap.  ``F.embedding``,
     not ``embedding[ids]``: on the CPU the indexing's backward accumulates
     rows in a thread-dependent order, so training would not repeat bit for
-    bit."""
-    vec = torch.nn.functional.embedding(ids, params.embedding)
+    bit.  From a vocab slice the rows come from the model group
+    (``Mesh.vocab_lookup``); the cap works row by row, after it."""
+    vec = (mesh.vocab_lookup(params.embedding, ids) if vocab_sliced(params, cfg)
+           else torch.nn.functional.embedding(ids, params.embedding))
     if cfg.embed_norm is not None:
         vec = _embed_cap(vec, cfg.embed_norm)
     return vec
@@ -191,27 +208,49 @@ def beta_gate(params: ParamTree, hidden: torch.Tensor) -> torch.Tensor:
 
 def deep_output(params: ParamTree, cfg: SATConfig, prev_embed: torch.Tensor,
                 hidden: torch.Tensor, context: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                mesh: Mesh = ONE_RANK) -> torch.Tensor:
     """Eq. 7 deep output -> (B, V) logits, with ``cfg.dropout`` before the
     projection where a generator is given.  With tied weights the projection
-    is the embedding table with ``embed_norm`` applied to every row."""
+    is the embedding table with ``embed_norm`` applied to every row.  From a
+    vocab slice the product runs on the model group's rows against the
+    slice, and the slabs are gathered back (``Mesh.vocab_product``)."""
     if cfg.deep_output:
         x = torch.tanh(prev_embed + _linear(params.out_hidden, hidden)
                        + _linear(params.out_context, context))
     else:
         x = _linear(params.out_hidden, hidden)
-    x = _dropout(x, cfg.dropout, generator)
-    if cfg.weight_tying and cfg.deep_output:
-        w = capped_embedding(params, cfg).to(x.dtype)
-        return (x @ w.T).float()
-    return _linear(params.out_proj, x)
+    x = _dropout(x, cfg.dropout, generator, mesh)
+    tied = cfg.weight_tying and cfg.deep_output
+    return project_vocab(params, cfg, x, capped_embedding(params, cfg) if tied else None,
+                         mesh)
+
+
+def project_vocab(params: ParamTree, cfg: SATConfig, x: torch.Tensor,
+                  embedding: Optional[torch.Tensor], mesh: Mesh = ONE_RANK,
+                  float_bias: bool = False) -> torch.Tensor:
+    """The vocab projection of rows x (n, E) -> (n, V): float32 logits
+    against ``embedding`` (the table capped at ``embed_norm``) where the
+    output is tied to it, else ``out_proj``, its bias added in x's type, or
+    in float32 after a float32 product with ``float_bias`` (the kernels'
+    route, JAX's ``fused_output_logits``).  From a vocab slice the product
+    runs on the model group's rows against the slice, and the slabs are
+    gathered back (``Mesh.vocab_product``)."""
+    def project(t):
+        if cfg.weight_tying and cfg.deep_output:
+            return (t @ embedding.to(t.dtype).T).float()
+        if not float_bias:
+            return _linear(params.out_proj, t)
+        out = (t @ params.out_proj.w.to(t.dtype)).float()
+        return out + params.out_proj.b.float() if "b" in params.out_proj else out
+    return mesh.vocab_product(x, project) if vocab_sliced(params, cfg) else project(x)
 
 
 def decoder_step(params: ParamTree, cfg: SATConfig, prev_embed: torch.Tensor,
                  h: torch.Tensor, c: torch.Tensor, annotations: torch.Tensor,
                  att_enc: torch.Tensor,
-                 generator: Optional[torch.Generator] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 mesh: Mesh = ONE_RANK) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                             torch.Tensor, torch.Tensor]:
     """One decode step: attention -> beta gate -> LSTM -> deep output (its
     dropout drawn from ``generator``).  Returns (logits, h', c', zt, alpha)."""
@@ -219,5 +258,5 @@ def decoder_step(params: ParamTree, cfg: SATConfig, prev_embed: torch.Tensor,
     beta = beta_gate(params, h[-1])
     x = torch.cat([prev_embed, beta * zt], dim=-1)
     h_new, c_new = lstm_stack_step(x, h, c, params.lstm)
-    logits = deep_output(params, cfg, prev_embed, h_new[-1], zt, generator)
+    logits = deep_output(params, cfg, prev_embed, h_new[-1], zt, generator, mesh)
     return logits, h_new, c_new, zt, alpha

@@ -15,9 +15,10 @@ from torch import nn
 from ..config import SATConfig
 from ..decode.api import caption_from_annotations
 from ..decode.beam import decode_route
+from ..parallel.mesh import ONE_RANK, Mesh
 from ..vocab import Vocab
-from .backbones import flax_init_
-from .decoder import ParamTree, init_decoder_params
+from .backbones import batch_stats_over, flax_init_
+from .decoder import ParamTree, init_decoder_params, vocab_sliced
 from .encoder import SATEncoder, encoder_from_config, probe_encoder
 
 
@@ -71,16 +72,19 @@ class SATModel(nn.Module):
                                  tree["state"]["batch_stats"])
         return cls(cfg, grid, encoder, decoder)
 
-    def encode(self, images: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def encode(self, images: torch.Tensor, train: bool = False,
+               mesh: Mesh = ONE_RANK) -> torch.Tensor:
         """images (B, H, W, 3) in [0, 1] -> annotations (B, L, D), on the
         model's device and in its dtype.  Eval mode runs without autograd.
         ``train=True`` puts the encoder in train mode, whose BatchNorm
         normalises with the batch statistics and updates its running ones,
-        and follows the caller's grad mode."""
+        and follows the caller's grad mode; on a ``mesh`` of ranks, the
+        statistics of the global batch (``backbones.batch_stats_over``)."""
         p = next(self.encoder.parameters())
         images = images.to(device=p.device, dtype=p.dtype)
         if train:
-            return self.encoder.train()(images)
+            with batch_stats_over(self.encoder, mesh):
+                return self.encoder.train()(images)
         with torch.no_grad():
             return self.encoder.eval()(images)
 
@@ -89,7 +93,8 @@ class SATModel(nn.Module):
         device (``decode.beam.decode_route``), which callers report."""
         gh, gw = self.grid_hw
         return decode_route(self.decoder.embedding.device, self.cfg, gh * gw,
-                            noisy=decoder_noise is not None and decoder_noise != 0.0)
+                            noisy=decoder_noise is not None and decoder_noise != 0.0,
+                            vocab_sharded=vocab_sliced(self.decoder, self.cfg))
 
     def caption(self, images: torch.Tensor, beamk: int = 3,
                 max_gen_length: int = 32,
@@ -99,14 +104,16 @@ class SATModel(nn.Module):
                 rescore_method: Optional[str] = None,
                 rescore_reward: float = 0.5, return_all: bool = False,
                 generator: Optional[torch.Generator] = None,
-                early_exit: bool = False, fused: Optional[bool] = None):
+                early_exit: bool = False, fused: Optional[bool] = None,
+                mesh: Mesh = ONE_RANK):
         """images (B, H, W, 3) in [0, 1] -> (captions, scores, alphas,
         perplexity) python lists, the reference's output contract; runs on
-        the model's device (``fused`` as in ``decode.beam.beam_search``)."""
+        the model's device (``fused`` and ``mesh`` as in
+        ``decode.beam.beam_search``: on a mesh, this rank's rows)."""
         return caption_from_annotations(
             self.decoder, self.cfg, self.encode(images), self.grid_hw,
             beamk=beamk, max_gen_length=max_gen_length, temperature=temperature,
             sample_method=sample_method, sample_topk=sample_topk,
             decoder_noise=decoder_noise, rescore_method=rescore_method,
             rescore_reward=rescore_reward, return_all=return_all,
-            generator=generator, early_exit=early_exit, fused=fused)
+            generator=generator, early_exit=early_exit, fused=fused, mesh=mesh)

@@ -16,7 +16,14 @@ autograd keeps what the backward needs (the JAX scan recomputes it under
 Random draws come from one ``torch.Generator``, in a fixed order: the init
 dropout, the coins, then per step the embedding and the output dropout.
 Without a generator the draws come from seed 0 and dropout is off, as JAX
-runs without a key."""
+runs without a key.
+
+On a mesh of ranks (``parallel/mesh.py``) the grouped loss takes this
+rank's rows and returns this rank's share of the global loss: the CE over
+the global count of target tokens, the attention term over the global
+``B * R * L``; the initial state's reshape runs on the gathered projection,
+so a rank's rows take their state from other ranks' images as one process's
+rows do; dropout draws the global batch's masks."""
 
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import torch
 from ..config import SATConfig
 from ..ops.label_smoothing import label_smoothing_loss, masked_token_accuracy
 from ..ops.lstm import lstm_stack_step
+from ..parallel.mesh import ONE_RANK, Mesh
 from .decoder import (ParamTree, _dropout, _linear, attention_precompute,
                       beta_gate, decoder_step, deep_output, embed_tokens,
                       init_lstm_state)
@@ -111,15 +119,18 @@ def train_forward_loss_grouped(params: ParamTree, cfg: SATConfig,
                                annotations: torch.Tensor,
                                encoded_captions: torch.Tensor,
                                lengths: torch.Tensor, epsilon: Epsilon,
-                               generator: Optional[torch.Generator] = None
-                               ) -> Dict[str, torch.Tensor]:
+                               generator: Optional[torch.Generator] = None,
+                               mesh: Mesh = ONE_RANK) -> Dict[str, torch.Tensor]:
     """The loss of ``train_forward`` + ``sat_loss`` with the reference
     captions kept grouped: annotations (B, L, D), not repeated;
     encoded_captions (B, R, T); lengths (B, R).  Each step's attention reads
     an image's annotations once for its R captions, and the loss terms are
     summed step by step, so no (N, T, V) logits are kept.
 
-    Returns {"loss", "ce_loss", "att_loss", "accuracy"} as 0-d tensors."""
+    Returns {"loss", "ce_loss", "att_loss", "accuracy"} as 0-d tensors; on
+    a mesh of more than one rank, this rank's shares of them (the sum over
+    the ranks is the global batch's value; the gradients of the shares sum
+    to the global gradient)."""
     dev = annotations.device
     caps = encoded_captions.long()
     b, r, total_t = caps.shape
@@ -131,9 +142,11 @@ def train_forward_loss_grouped(params: ParamTree, cfg: SATConfig,
     # the reference's init over the N = B*R repeated rows: repeat the (B, D)
     # mean, then reshape the (N, 2*layers*H) projection as a whole
     mean = _dropout(annotations.mean(dim=1).repeat_interleave(r, dim=0),
-                    cfg.dropout, drop)
+                    cfg.dropout, drop, mesh)
     g = _linear(params.init_proj, _linear(params.init_factorize, mean))
-    init = g.reshape(2 * layers, n, H)
+    # on a mesh the global reshape, then this rank's rows
+    init = mesh.gather(g).reshape(2 * layers, n * mesh.size, H)
+    init = init[:, mesh.rank * n:(mesh.rank + 1) * n]
     h, c = init[:layers], init[layers:]
     att_enc = attention_precompute(params, annotations)           # (B, L, A)
     coins = _coins(num_steps, epsilon, gen, dev)
@@ -144,8 +157,8 @@ def train_forward_loss_grouped(params: ParamTree, cfg: SATConfig,
     for t in range(num_steps):
         gt = caps[:, :, t]
         words = gt if t <= 2 else torch.where(coins[t], gt, pred)
-        prev_embed = _dropout(embed_tokens(params, words, cfg),
-                              cfg.embedding_dropout, drop)        # (B, R, E)
+        prev_embed = _dropout(embed_tokens(params, words, cfg, mesh),
+                              cfg.embedding_dropout, drop, mesh)  # (B, R, E)
         # grouped soft attention: decoder.soft_attention with the annotations
         # broadcast over the R captions of each image
         att_dec = _linear(params.att_dec, h[-1].reshape(b, r, H))  # (B, R, A)
@@ -158,7 +171,7 @@ def train_forward_loss_grouped(params: ParamTree, cfg: SATConfig,
                        beta_gate(params, h[-1]) * zt], dim=-1)
         h, c = lstm_stack_step(x, h, c, params.lstm)
         logits = deep_output(params, cfg, prev_embed.reshape(n, -1), h[-1],
-                             zt, drop).float()                    # (N, V)
+                             zt, drop, mesh).float()              # (N, V)
 
         active = (lengths > t).float()                            # (B, R)
         tgt = caps[:, :, t + 1]
@@ -172,9 +185,9 @@ def train_forward_loss_grouped(params: ParamTree, cfg: SATConfig,
         n_active = n_active + active.sum()
         alpha_total = alpha_total + alpha.float() * active[:, :, None]
 
-    n_valid = torch.clamp(n_active, min=1.0)
+    n_valid = torch.clamp(mesh.sum(n_active), min=1.0)
+    att = ((1.0 - alpha_total) ** 2).mean() / mesh.size   # over the global B*R*L
     ce = ce_sum / n_valid
-    att = ((1.0 - alpha_total) ** 2).mean()
     return {"loss": ce + cfg.att_gamma * att, "ce_loss": ce, "att_loss": att,
             "accuracy": correct / n_valid}
 

@@ -20,6 +20,12 @@ search: the step kernels on the card, or the plain path by
 model and the images to bfloat16, which moves captions away from float32
 (``ROADMAP.md`` §3).  ``main(argv, device="cpu")`` runs on
 the CPU; by default it runs on the CUDA card and raises without one.
+
+On a mesh of ranks (``--mesh_shape`` / ``--mesh_axes``, one process per
+device, e.g. ``torchrun --nproc_per_node 2 -m sat_tpu_torch.serve
+--mesh_shape 2 ...``; ``--mesh_axes data model`` shards the vocab tables),
+``--batch`` is rounded up to the mesh size, each rank decodes and captions
+its rows of every batch, and rank 0 writes the records in input order.
 """
 
 from __future__ import annotations
@@ -92,8 +98,10 @@ def main(argv: Optional[Sequence[str]] = None,
     image-decode route (``route``) and the beam route (``decode_route``,
     printed on stderr too)."""
     from . import native
+    from .parallel.mesh import (create_mesh, maybe_initialize_distributed,
+                                shard_vocab_params)
     from .train.checkpoints import load_any_checkpoint
-    from .utils.platform import require_one_device, resolve_device
+    from .utils.platform import resolve_device
 
     p = argparse.ArgumentParser(description="batch image captioning")
     p.add_argument("--checkpoint", required=True)
@@ -118,14 +126,20 @@ def main(argv: Optional[Sequence[str]] = None,
     p.add_argument("--return_all", action="store_true",
                    help="emit all beamk candidates per image")
     p.add_argument("--mesh_shape", nargs="+", default=[-1], type=int,
-                   help="one device only: -1 or 1")
+                   help="mesh of ranks (-1: the world size)")
     p.add_argument("--mesh_axes", nargs="+", default=["data"], type=str,
-                   help="one device only: data")
+                   help="its axes: data, and model for vocab-dim TP")
     p.add_argument("--precision", default=16, type=int, choices=[16, 32])
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--output", default="-", help="JSONL path ('-' = stdout)")
     a = p.parse_args(argv)
-    require_one_device(a.mesh_shape, a.mesh_axes, "serves")
+    maybe_initialize_distributed()
+    mesh = create_mesh(a.mesh_shape, a.mesh_axes)
+    if a.batch % mesh.size:
+        a.batch += mesh.size - a.batch % mesh.size
+        print(f"# batch rounded up to {a.batch} ({mesh.size} devices)",
+              file=sys.stderr)
+    main_rank = mesh.rank == 0
     paths = gather_images(a.images)
     if not paths:
         print("no images found", file=sys.stderr)
@@ -137,6 +151,8 @@ def main(argv: Optional[Sequence[str]] = None,
     vocab, size = model.vocab, model.cfg.input_size
     dt = torch.bfloat16 if a.precision == 16 else torch.float32
     model = model.to(dt)
+    if mesh.vocab_sharded(model.cfg.vocab_size):
+        shard_vocab_params(model.decoder, mesh)
     scale = torch.tensor(255.0, dtype=dt, device=dev)
     rescore = None if a.rescore_method in ("None", "none", "") else a.rescore_method
     temperature = (a.temperature[0] if len(a.temperature) == 1
@@ -145,7 +161,8 @@ def main(argv: Optional[Sequence[str]] = None,
     route = model.decode_route(a.decoder_noise)
     print(f"decode route: {route}", file=sys.stderr)
 
-    out = sys.stdout if a.output == "-" else open(a.output, "w")
+    out = None if not main_rank else (
+        sys.stdout if a.output == "-" else open(a.output, "w"))
     n_done, t0 = 0, time.perf_counter()
     tm = {"decode_s": 0.0, "decode_wait_s": 0.0}
 
@@ -170,23 +187,32 @@ def main(argv: Optional[Sequence[str]] = None,
                        "score": scores[i], "perplexity": ppl[i]}
             out.write(json.dumps(rec) + "\n")
 
+    rows = a.batch // mesh.size
+
+    def own_rows(chunk):
+        """This rank's files of the chunk padded to the batch with its last
+        file (padded after decoding: each file decodes once)."""
+        lo = mesh.rank * rows
+        return chunk[lo:lo + rows] or chunk[-1:]
+
     # one prefetch thread: the host decodes chunk N + 1 while chunk N is
     # captioned (beam search syncs with the host every step, so the overlap
     # has to come from a second host thread)
     chunks = [paths[lo:lo + a.batch] for lo in range(0, len(paths), a.batch)]
     try:
         with ThreadPoolExecutor(max_workers=1) as pool:
-            pending = pool.submit(timed_decode, chunks[0])
+            pending = pool.submit(timed_decode, own_rows(chunks[0]))
             for i, chunk in enumerate(chunks):
                 t = time.perf_counter()
                 imgs, ok = pending.result()
                 tm["decode_wait_s"] += time.perf_counter() - t
                 if i + 1 < len(chunks):
-                    pending = pool.submit(timed_decode, chunks[i + 1])
+                    pending = pool.submit(timed_decode, own_rows(chunks[i + 1]))
                 n = len(chunk)
-                if n < a.batch:  # pad the tail to the fixed batch
+                if len(imgs) < rows:  # pad the tail to the fixed batch
                     imgs = np.concatenate(
-                        [imgs, np.repeat(imgs[-1:], a.batch - n, axis=0)])
+                        [imgs, np.repeat(imgs[-1:], rows - len(imgs), axis=0)])
+                    ok = np.concatenate([ok, np.repeat(ok[-1:], rows - len(ok))])
                 x = torch.from_numpy(imgs).to(dev).to(dt) / scale
                 caps, scores, _, ppl = model.caption(
                     x, beamk=a.beamk, max_gen_length=a.max_gen_length,
@@ -194,15 +220,22 @@ def main(argv: Optional[Sequence[str]] = None,
                     sample_topk=a.sample_topk, decoder_noise=a.decoder_noise,
                     rescore_method=rescore, rescore_reward=a.rescore_reward,
                     return_all=a.return_all, generator=generator,
-                    early_exit=a.early_exit)
-                emit(chunk, ok, caps, scores, ppl)
+                    early_exit=a.early_exit, mesh=mesh)
+                if mesh.size > 1:   # every rank's rows, in order
+                    parts = mesh.gather_objects((ok, caps, scores, ppl))
+                    ok, caps, scores, ppl = (sum((list(q[j]) for q in parts), [])
+                                             for j in range(4))
+                if main_rank:
+                    emit(chunk, ok, caps, scores, ppl)
                 n_done += n
-                print(f"\r# {n_done}/{len(paths)} "
-                      f"({n_done / (time.perf_counter() - t0):.0f} imgs/s)",
-                      end="", file=sys.stderr)
-        print(file=sys.stderr)
+                if main_rank:
+                    print(f"\r# {n_done}/{len(paths)} "
+                          f"({n_done / (time.perf_counter() - t0):.0f} imgs/s)",
+                          end="", file=sys.stderr)
+        if main_rank:
+            print(file=sys.stderr)
     finally:
-        if out is not sys.stdout:
+        if out is not None and out is not sys.stdout:
             out.close()
     if timings is not None:
         timings.update(tm, images=n_done, seconds=time.perf_counter() - t0,

@@ -13,7 +13,18 @@ continues a run (a JAX package's checkpoint too): as in ``train.py``, the
 model and optimizer settings come from the checkpoint's header, and only
 ``--epochs``, ``--name``, ``--json`` (default: the header's), ``--workers``,
 ``--val_interval``, ``--val_percent`` and ``--profile_dir`` from the
-command line."""
+command line.
+
+Data parallelism and vocab-dim tensor parallelism run one process per
+device under ``torch.distributed`` (``parallel/mesh.py``):
+
+    torchrun --nproc_per_node 2 -m sat_tpu_torch.train --mesh_shape 2 ...
+    torchrun --nproc_per_node 4 -m sat_tpu_torch.train \
+        --mesh_shape 2 2 --mesh_axes data model ...
+
+joins the process group from torchrun's variables first
+(``maybe_initialize_distributed``: NCCL on cards, gloo on the CPU, or
+``$SAT_TORCH_DIST_BACKEND``); each rank takes the card ``LOCAL_RANK``."""
 
 from __future__ import annotations
 
@@ -41,7 +52,9 @@ def main(argv: Optional[Sequence[str]] = None,
                          val_percent=cfg.val_percent,
                          profile_dir=cfg.profile_dir)
     seed_everything(cfg.seed)
+    from ..parallel.mesh import maybe_initialize_distributed
     from .loop import Trainer
+    maybe_initialize_distributed()
     print(f" * Effective Batch Size = {cfg.batch * cfg.accumulate}")
     trainer = Trainer(cfg, log_root=known.log_root, device=device)
     metrics = trainer.fit()

@@ -303,15 +303,20 @@ TreeFn = Callable[[], Dict[str, Any]]
 class TopKCheckpointManager:
     """The best ``save_top_k`` checkpoints by ``monitor`` (higher is
     better), named ``epoch={e}-step={s}-{monitor}={v:.4f}.ckpt``, and
-    ``last.ckpt`` every ``cfg.save_last_every`` validations."""
+    ``last.ckpt`` every ``cfg.save_last_every`` validations.  With
+    ``write=False`` (a rank other than 0) it keeps the same registry and
+    builds the same trees, which may be collectives, and writes nothing."""
 
-    def __init__(self, dirpath: str, monitor: str = "bleu4", save_top_k: int = 1):
+    def __init__(self, dirpath: str, monitor: str = "bleu4", save_top_k: int = 1,
+                 write: bool = True):
         self.dirpath = dirpath
         self.monitor = monitor
         self.save_top_k = save_top_k
+        self.write = write
         self.best: List[Tuple[float, str]] = []  # (value, path)
         self._val_count = 0
-        os.makedirs(dirpath, exist_ok=True)
+        if write:
+            os.makedirs(dirpath, exist_ok=True)
 
     @property
     def best_value(self) -> Optional[float]:
@@ -331,7 +336,7 @@ class TopKCheckpointManager:
     def on_validation_end(self, cfg: SATConfig, tree_fn: TreeFn,
                           metrics: Dict[str, float], epoch: int, step: int) -> None:
         """``tree_fn`` builds the checkpoint tree; it is called only when a
-        file is written.  Nothing happens for empty metrics."""
+        file is due, on every rank.  Nothing happens for empty metrics."""
         if not metrics:
             return
         value = float(metrics.get(self.monitor, float("-inf")))
@@ -359,6 +364,8 @@ class TopKCheckpointManager:
                 self.best.remove(evict)
         # the registry is updated first, so a file lists itself
         tree = dict(tree_fn(), top_k=self.state_dict())
+        if not self.write:
+            return
         if save:
             save_checkpoint(path, cfg, tree)
             if evict is not None and os.path.exists(evict[1]):
@@ -369,13 +376,16 @@ class TopKCheckpointManager:
 
 class RestartCheckpointManager:
     """``restart-{step}.ckpt`` whenever the LR rises after the warmup (a
-    cosine warm restart)."""
+    cosine warm restart); ``write=False`` builds the tree and writes
+    nothing, as ``TopKCheckpointManager``."""
 
-    def __init__(self, dirpath: str, warmup_steps: int = 0):
+    def __init__(self, dirpath: str, warmup_steps: int = 0, write: bool = True):
         self.dirpath = dirpath
         self.warmup_steps = warmup_steps
+        self.write = write
         self.prev_lr = 0.0
-        os.makedirs(dirpath, exist_ok=True)
+        if write:
+            os.makedirs(dirpath, exist_ok=True)
 
     def on_train_batch_end(self, cfg: SATConfig, tree_fn: TreeFn,
                            global_step: int, current_lr: float) -> Optional[str]:
@@ -386,6 +396,8 @@ class RestartCheckpointManager:
         saved = None
         if current_lr > self.prev_lr:
             saved = os.path.join(self.dirpath, f"restart-{global_step}.ckpt")
-            save_checkpoint(saved, cfg, tree_fn())
+            tree = tree_fn()
+            if self.write:
+                save_checkpoint(saved, cfg, tree)
         self.prev_lr = current_lr
         return saved

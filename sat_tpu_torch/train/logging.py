@@ -29,9 +29,14 @@ def next_version_dir(save_dir: str, name: str, create: bool = True) -> str:
 
 
 class MetricsLogger:
-    def __init__(self, logdir: str):
+    """``enabled=False`` (a rank other than 0) touches no file."""
+
+    def __init__(self, logdir: str, enabled: bool = True):
         self.logdir = logdir
+        self.enabled = enabled
         self._tb = None
+        if not enabled:
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter
             self._tb = SummaryWriter(log_dir=logdir)
@@ -39,6 +44,8 @@ class MetricsLogger:
             self._jsonl = open(os.path.join(logdir, "metrics.jsonl"), "a")
 
     def scalar(self, tag: str, value: float, step: int) -> None:
+        if not self.enabled:
+            return
         if self._tb is not None:
             self._tb.add_scalar(tag, value, global_step=step)
         else:
@@ -62,6 +69,8 @@ class MetricsLogger:
             self.scalar(f"{k}/val_epoch", float(v), epoch + 1)
 
     def close(self) -> None:
+        if not self.enabled:
+            return
         if self._tb is not None:
             self._tb.flush()
             self._tb.close()

@@ -1,4 +1,4 @@
-"""Single-GPU training, ported from ``sat_tpu/train/loop.py``: the train
+"""Training, ported from ``sat_tpu/train/loop.py``: the train
 step (augment -> encoder -> grouped teacher-forced loss -> backward -> clip
 -> group-LR update), the epoch over the dataset's loader, ``validate``
 (beam search at ``val_beamk``, LN rescoring, BLEU/GLEU/cosine/perplexity),
@@ -51,7 +51,28 @@ The settings of JAX's step and epoch, as JAX runs them:
   has no counterpart of, so a staged epoch runs step by step, which is
   JAX's chunked run's result.
 * ``profile_dir``: a ``torch.profiler`` trace of ``fit``'s first train
-  epoch (``utils/timing.py::maybe_profile``), validation outside it."""
+  epoch (``utils/timing.py::maybe_profile``), validation outside it.
+
+On a mesh of ``torch.distributed`` ranks (``mesh_shape`` / ``mesh_axes``,
+``parallel/mesh.py``), as JAX's mesh step runs:
+
+* the global ``batch`` splits over every rank; each rank's loaders give its
+  rows (``CaptionLoader(process_index, process_count)``), the validation
+  batch is cut to a multiple of the mesh and its ragged tail dropped;
+* a step on P ranks is the one-process step on the global batch: the
+  augment, coins and dropout drawn once for the global batch, BatchNorm on
+  the global batch's statistics, the loss normalised by the global counts,
+  the gradients summed over the ranks, the clip's norm the whole model's;
+  with a ``model`` axis, vocab TP shards the embedding and ``out_proj``
+  (and their moments) over it;
+* ``microbatch`` chunks each rank's rows (``microbatch / P`` per chunk), so
+  chunk i is every rank's chunk i: JAX chunks the global batch
+  contiguously, which would leave ranks idle in a chunk;
+* validation decodes each rank's rows and gathers the results, and every
+  rank scores the whole batch;
+* rank 0 alone writes the logs and checkpoints, into the version directory
+  it chose; a checkpoint holds the full tables, gathered from the slices;
+* ``device_resident_data`` is one process's."""
 
 from __future__ import annotations
 
@@ -75,7 +96,9 @@ from ..evalx.metrics import score_captions
 from ..models.jax_import import model_to_jax_tree
 from ..models.model import SATModel
 from ..models.sat import train_forward_loss_grouped
-from ..utils.platform import require_one_device, resolve_device
+from ..parallel.mesh import (ONE_RANK, Mesh, create_mesh, gather_tree,
+                             place_tree, shard_vocab_params)
+from ..utils.platform import resolve_device
 from ..utils.timing import StepTimer, maybe_profile
 from .checkpoints import (RestartCheckpointManager, TopKCheckpointManager,
                           load_checkpoint, save_checkpoint)
@@ -108,29 +131,32 @@ def cast_weights(module: torch.nn.Module, dtype: torch.dtype) -> Iterator[None]:
             m._parameters[name] = p
 
 
-def val_decode(model: SATModel, cfg: SATConfig, images: Any) -> BeamResult:
+def val_decode(model: SATModel, cfg: SATConfig, images: Any,
+               mesh: Mesh = ONE_RANK) -> BeamResult:
     """The validation decode: uint8 images (B, S, S, 3) -> [0, 1] ->
     ``model.encode`` -> beam search at ``val_beamk`` with LN rescoring, on
-    the model's device (the step kernels on a card)."""
+    the model's device (the step kernels on a card); on a ``mesh``, of this
+    rank's rows."""
     dev = next(model.parameters()).device
     images = val_preprocess(torch.as_tensor(images).to(dev))
     return beam_search(model.decoder, cfg, model.encode(images),
                        beamk=cfg.val_beamk, max_gen_length=cfg.val_max_len,
                        temperature=1.0, rescore_method="LN",
-                       early_exit=cfg.val_early_exit)
+                       early_exit=cfg.val_early_exit, mesh=mesh)
 
 
-def _fetch_without_alphas(res: BeamResult) -> BeamResult:
+def _fetch_without_alphas(res: BeamResult, mesh: Mesh = ONE_RANK) -> BeamResult:
     """The result on the host, with zeros in place of the attention maps,
-    which scoring never reads."""
-    host = [x.cpu().numpy() for x in (res.tokens, res.lengths, res.raw_scores,
-                                      res.scores, res.perplexity)]
+    which scoring never reads; on a ``mesh``, every rank's rows gathered."""
+    host = [mesh.fetch_global(x).cpu().numpy()
+            for x in (res.tokens, res.lengths, res.raw_scores, res.scores, res.perplexity)]
     alphas = np.zeros(host[1].shape + tuple(res.alphas.shape[2:]), np.float32)
     return BeamResult(*host, alphas)
 
 
 class Trainer:
-    """Trains a fresh ``SATModel.create(cfg, seed cfg.seed)`` on one device.
+    """Trains a fresh ``SATModel.create(cfg, seed cfg.seed)`` on one device,
+    or on each rank of the mesh ``cfg.mesh_shape`` / ``cfg.mesh_axes``.
 
     With ``cfg.json`` or ``dataset`` (a path or the loaded dataset dict) it
     builds the train and val loaders, takes the vocabulary, ``vocab_size``,
@@ -142,16 +168,34 @@ class Trainer:
     ``cfg.train_loader_len``) sizes the LR schedules, and the caller hands
     the batches to ``train_step``/``train_epoch``.  ``device=None`` means the
     CUDA card and raises where there is none.  ``cfg.resume`` continues
-    from that checkpoint (``_resume``).  ``mesh_shape`` / ``mesh_axes``
-    beyond one device on the ``data`` axis raise ``NotImplementedError``,
-    as ``serve`` does.  The first validation reports its decode route
-    (``SATModel.decode_route``) on stderr."""
+    from that checkpoint (``_resume``).  The first validation reports its
+    decode route (``SATModel.decode_route``) on stderr.
+
+    Every rank builds its own ``Trainer`` (``maybe_initialize_distributed``
+    first).  A mesh whose size is not the world size, or a ``batch`` the
+    mesh does not divide, raises ``ValueError`` before anything is built.
+    On a mesh, ``train_step`` takes this rank's rows of the global batch
+    (``parallel.mesh.shard_batch``) and returns the global batch's
+    metrics."""
 
     def __init__(self, cfg: SATConfig, dataset: Optional[Any] = None,
                  log_root: str = "logs",
                  device: Union[str, torch.device, None] = None,
                  steps_per_epoch: Optional[int] = None):
-        require_one_device(cfg.mesh_shape, cfg.mesh_axes, "trains")
+        self.mesh = create_mesh(cfg.mesh_shape, cfg.mesh_axes)
+        n_ranks = self.mesh.size
+        if cfg.batch % n_ranks:
+            raise ValueError(
+                f"--batch {cfg.batch} must be divisible by the mesh size "
+                f"{n_ranks} (mesh_shape={cfg.mesh_shape}): the batch is "
+                "sharded across every rank on the mesh")
+        if cfg.microbatch and cfg.microbatch % n_ranks:
+            raise ValueError(f"--microbatch {cfg.microbatch} must be divisible by "
+                             f"the mesh size {n_ranks}: each rank chunks its rows")
+        if cfg.device_resident_data and n_ranks > 1:
+            raise ValueError("device_resident_data is single-process: the "
+                             "staged pixel array lives in one process's device "
+                             "memory (multi-process runs keep the host loaders)")
         self.device = resolve_device(device)
         self.train_loader = self.val_loader = None
         if cfg.json is not None or dataset is not None:
@@ -182,13 +226,16 @@ class Trainer:
         self.model = SATModel.create(
             cfg, torch.Generator(self.device).manual_seed(cfg.seed))
         self.cfg = cfg = self.model.cfg          # encoder_dim written back
+        self.vocab_sharded = self.mesh.vocab_sharded(cfg.vocab_size)
+        if self.vocab_sharded:
+            shard_vocab_params(self.model.decoder, self.mesh)
         self.model.decoder.requires_grad_(True)
         self.optimizer, _ = build_optimizer(cfg, self.model.named_parameters())
         self.multisteps = (MultiSteps(cfg.accumulate, self.model.named_parameters())
                            if cfg.accumulate > 1 else None)
         self.compute_dtype = torch.bfloat16 if cfg.precision == 16 else torch.float32
         self.scheduler = LRScheduler(cfg, steps_per_epoch=steps_per_epoch)
-        self.augment = build_train_augment(cfg)
+        self.augment = build_train_augment(cfg, self.mesh)
         self.encoder_on = cfg.encoder_finetune_after > 0 and cfg.encoder_lr > 0
         self.global_step = 0
         self.current_epoch = 0
@@ -201,13 +248,16 @@ class Trainer:
         self.last_val_timings: Dict[str, float] = {}
         self.epoch_timings: List[Dict[str, Any]] = []
         self.logdir = self.logger = self.ckpt = self.restart_ckpt = None
+        self.is_main = self.mesh.rank == 0
         if self.train_loader is not None:
-            self.logdir = next_version_dir(log_root, cfg.name)
-            self.logger = MetricsLogger(self.logdir)
+            # rank 0 owns every file; its version directory is everyone's
+            self.logdir = self.mesh.broadcast_object(
+                next_version_dir(log_root, cfg.name) if self.is_main else None)
+            self.logger = MetricsLogger(self.logdir, enabled=self.is_main)
             self.ckpt = TopKCheckpointManager(self.logdir, cfg.save_monitor,
-                                              cfg.save_top_k)
-            self.restart_ckpt = RestartCheckpointManager(self.logdir,
-                                                         cfg.lr_warmup_steps)
+                                              cfg.save_top_k, write=self.is_main)
+            self.restart_ckpt = RestartCheckpointManager(
+                self.logdir, cfg.lr_warmup_steps, write=self.is_main)
         if cfg.resume:
             self._resume(cfg.resume, steps_per_epoch)
         self.staging_seconds: Dict[str, float] = {}
@@ -221,12 +271,16 @@ class Trainer:
         scheduler, early stopping and the top-k registry from ``path``, as
         JAX's Trainer restores them.  A file that ended an epoch starts the
         next; a mid-epoch one re-enters its epoch, skipping
-        ``step % steps_per_epoch`` batches."""
+        ``step % steps_per_epoch`` batches.  Under vocab TP each rank takes
+        its slices of the tables and their moments."""
         from ..models.jax_import import model_from_jax_tree
         _, raw = load_checkpoint(path)
         if "opt_state" not in raw:
             raise ValueError(f"{path} has no 'opt_state': resume needs a checkpoint "
                              "written by training (top-k, last.ckpt or restart-*.ckpt)")
+        if self.vocab_sharded:
+            raw = dict(raw, params=place_tree(raw["params"], self.mesh),
+                       opt_state=place_tree(raw["opt_state"], self.mesh))
         self.model.load_state_dict(model_from_jax_tree(self.cfg, raw).state_dict())
         load_optax_state(self.cfg, self.model, self.optimizer, raw["opt_state"],
                          self.multisteps)
@@ -243,8 +297,8 @@ class Trainer:
             self.ckpt.load_state_dict(raw["top_k"], os.path.dirname(os.path.abspath(path)))
 
     def _build_data(self, cfg: SATConfig, dataset: Optional[Any]) -> SATConfig:
-        """The datasets and loaders; returns cfg with the dataset's
-        vocabulary and sizes."""
+        """The datasets and loaders (this rank's rows on a mesh); returns
+        cfg with the dataset's vocabulary and sizes."""
         self.train_ds = CaptionDataset(dataset if dataset is not None else cfg.json,
                                        "train")
         self.val_ds = CaptionDataset(self.train_ds.json, "val")
@@ -255,17 +309,25 @@ class Trainer:
             embed_dim=js["embed_dim"] if js.get("embed_dim") else cfg.embed_dim,
             pretrained_embedding=js.get("pretrained_embedding"),
             max_cap_length=js["max_cap_length"])
+        n, shards = self.mesh.size, dict(process_index=self.mesh.rank,
+                                         process_count=self.mesh.size)
         self.train_loader = CaptionLoader(
             self.train_ds, cfg.batch, cfg.input_size,
             shuffle=not cfg.bucket_sampler, bucket=cfg.bucket_sampler,
             seed=cfg.seed, workers=cfg.workers, train=True,
-            cache_images=cfg.cache_images, native_decode=cfg.native_decode)
-        # val keeps its tail batch
+            cache_images=cfg.cache_images, native_decode=cfg.native_decode,
+            **shards)
+        # val keeps its tail batch on one process; on a mesh every batch
+        # splits over the ranks, and a ragged tail is dropped
+        val_batch = min(cfg.batch, len(self.val_ds))
+        if n > 1:
+            val_batch = max(val_batch - val_batch % n, n)
         self.val_loader = CaptionLoader(
-            self.val_ds, min(cfg.batch, len(self.val_ds)), cfg.input_size,
+            self.val_ds, val_batch, cfg.input_size,
             shuffle=False, bucket=cfg.bucket_sampler, seed=cfg.seed,
-            workers=cfg.workers, train=False, drop_last=False,
-            cache_images=cfg.cache_images, native_decode=cfg.native_decode)
+            workers=cfg.workers, train=False, drop_last=n > 1,
+            cache_images=cfg.cache_images, native_decode=cfg.native_decode,
+            **shards)
         return cfg
 
     def _stage_split(self, ds: CaptionDataset, loader: CaptionLoader,
@@ -312,7 +374,9 @@ class Trainer:
         microbatch chunks where set), clip and update (with ``accumulate``,
         only on every k-th step, on the mean of the k gradients); returns
         its metrics as 0-d tensors on the device (``loss``, ``ce_loss``,
-        ``att_loss``, ``accuracy``) without waiting for them."""
+        ``att_loss``, ``accuracy``) without waiting for them: on a mesh,
+        ``batch`` holds this rank's rows and the metrics are the global
+        batch's."""
         cfg = self.cfg
         lrs = self.scheduler.current_lrs(self.global_step)
         train_encoder = (self.encoder_on
@@ -330,14 +394,17 @@ class Trainer:
                       for k in ("captions", "lengths"))
 
         images = self.augment(gen, images)
-        mb, b = cfg.microbatch, caps.shape[0]
+        mb, b = cfg.microbatch // self.mesh.size, caps.shape[0]
         if not (mb and 0 < mb < b and b % mb == 0):
             metrics = self._forward(images, caps, lens, epsilon, gen, train_encoder)
             metrics["loss"].backward()
         else:
-            metrics = self._chunked_backward(images, caps, lens, epsilon, train_encoder)
+            metrics = self._chunked_backward(images, caps, lens, epsilon,
+                                             train_encoder, mb)
+        metrics = self._global(metrics)
+        self.mesh.reduce_gradients(self.model.named_parameters(), self.vocab_sharded)
         if self.multisteps is None or self.multisteps.add(self.model.named_parameters()):
-            clip_gradients(cfg, self.model.parameters())
+            clip_gradients(cfg, self.model.parameters(), self.mesh, self._sliced())
             apply_group_lrs(self.optimizer, lrs)
             step(self.optimizer)
         self.model.zero_grad(set_to_none=True)
@@ -345,6 +412,19 @@ class Trainer:
         self.scheduler.on_train_batch_end(self.global_step)
         self.global_step += 1
         return {k: v.detach() for k, v in metrics.items()}
+
+    def _global(self, shares: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The global batch's metrics from every rank's shares (one sum)."""
+        keys = sorted(shares)
+        total = self.mesh.sum(torch.stack([shares[k].detach() for k in keys]))
+        return dict(zip(keys, total))
+
+    def _sliced(self) -> List[torch.Tensor]:
+        """The parameters that hold vocab TP slices."""
+        if not self.vocab_sharded:
+            return []
+        return [p for n, p in self.model.named_parameters()
+                if self.mesh.is_vocab_leaf(n.split("."), p)]
 
     def _forward(self, images: torch.Tensor, caps: torch.Tensor, lens: torch.Tensor,
                  epsilon: float, gen: torch.Generator, train_encoder: bool
@@ -358,21 +438,22 @@ class Trainer:
                 annots = self.model.encode(images)     # eval mode, running stats
             else:
                 with torch.set_grad_enabled(train_encoder):
-                    annots = self.model.encode(images, train=True)
+                    annots = self.model.encode(images, train=True, mesh=self.mesh)
             return train_forward_loss_grouped(self.model.decoder, cfg, annots, caps,
-                                              lens, epsilon, gen)
+                                              lens, epsilon, gen, self.mesh)
 
     def _chunked_backward(self, images: torch.Tensor, caps: torch.Tensor,
-                          lens: torch.Tensor, epsilon: float, train_encoder: bool
-                          ) -> Dict[str, torch.Tensor]:
-        """One forward and backward per microbatch chunk, the gradients
+                          lens: torch.Tensor, epsilon: float, train_encoder: bool,
+                          mb: int) -> Dict[str, torch.Tensor]:
+        """One forward and backward per chunk of ``mb`` rows, the gradients
         summed: chunk i's objective is its CE times its share of the batch's
         target tokens plus ``att_gamma`` times its attention term over the
-        number of chunks; the metrics are the whole batch's."""
+        number of chunks; the metrics are the whole batch's (on a mesh, this
+        rank's shares of them; chunk i is every rank's chunk i)."""
         cfg = self.cfg
-        mb = cfg.microbatch
         nchunks, num_steps = caps.shape[0] // mb, caps.shape[2] - 1
-        valid = lambda ln: torch.clamp(ln.clamp(0, num_steps).sum().float(), min=1.0)
+        valid = lambda ln: torch.clamp(self.mesh.sum(ln.clamp(0, num_steps).sum().float()),
+                                       min=1.0)
         total_valid = valid(lens)
         rows = []
         for i in range(nchunks):
@@ -483,32 +564,42 @@ class Trainer:
         return means
 
     def _checkpoint_tree(self) -> Dict[str, Any]:
-        """The checkpoint tree in JAX's layout, ``opt_state`` included."""
+        """The checkpoint tree in JAX's layout, ``opt_state`` included;
+        under vocab TP the slices gathered to the full tables (a collective:
+        every rank calls)."""
         tree = model_to_jax_tree(self.model)
+        opt_state = optax_state_dict(self.cfg, self.model, self.optimizer,
+                                     self._n_updates(), self.multisteps)
+        if self.vocab_sharded:
+            tree["params"] = gather_tree(tree["params"], self.mesh)
+            opt_state = gather_tree(opt_state, self.mesh)
         tree.update(
-            opt_state=optax_state_dict(self.cfg, self.model, self.optimizer,
-                                       self._n_updates(), self.multisteps),
+            opt_state=opt_state,
             step=self.global_step, epoch=self.current_epoch,
             scheduler=dict(self.scheduler.state_dict()),
             early_stop={"best": (self.early_stop_best
                                  if self.early_stop_best is not None
                                  else float("-inf")),
                         "count": self.early_stop_count},
-            top_k=self.ckpt.state_dict())
+            top_k=self.ckpt.state_dict() if self.ckpt is not None else {})
         return tree
 
     def validate(self) -> Dict[str, float]:
         """Decode ``val_percent`` of the val batches, score them, and take
         each metric's mean over the batches; then log them, run the plateau
         scheduler, the top-k / last checkpoint and early stopping.
-        ``last_val_timings`` holds the seconds of each part."""
+        ``last_val_timings`` holds the seconds of each part.  On a mesh each
+        rank decodes its rows, the results and references are gathered, and
+        every rank scores the whole batch with the full embedding."""
         cfg = self.cfg
         if not self._route_reported:
             print(f"decode route: {self.model.decode_route()}", file=sys.stderr)
             self._route_reported = True
         limit = max(1, int(round(cfg.val_percent * len(self.val_loader))))
         tm = {"data": 0.0, "decode_fetch": 0.0, "score": 0.0}
-        embedding = self.model.decoder.embedding.detach().cpu().numpy()
+        embedding = self.mesh.full_table(self.model.decoder.embedding.detach(), 0) \
+            if self.vocab_sharded else self.model.decoder.embedding.detach()
+        embedding = embedding.cpu().numpy()
         self.val_loader.set_epoch(self.current_epoch)
         batch_metrics = []
         if self._staged_val_images is None:
@@ -528,13 +619,15 @@ class Trainer:
             t0 = time.perf_counter()
             images = (batch["images"] if "images" in batch else self._staged_val_images[
                 torch.as_tensor(batch["image_idx"], device=self.device)])
-            res = _fetch_without_alphas(val_decode(self.model, cfg, images))
+            res = _fetch_without_alphas(val_decode(self.model, cfg, images, self.mesh),
+                                        self.mesh)
+            refs = [self.mesh.fetch_global(torch.as_tensor(np.asarray(batch[k]))).numpy()
+                    for k in ("captions", "lengths")]
             tm["decode_fetch"] += time.perf_counter() - t0
             t0 = time.perf_counter()
             caps, _, _, ppl = unpack_beam_result(res, self.model.grid_hw)
             batch_metrics.append(score_captions(
-                caps, batch["captions"], batch["lengths"], embedding=embedding,
-                perplexities=ppl))
+                caps, *refs, embedding=embedding, perplexities=ppl))
             tm["score"] += time.perf_counter() - t0
         means = {k: float(np.mean([m[k] for m in batch_metrics]))
                  for k in batch_metrics[0]} if batch_metrics else {}
@@ -585,7 +678,8 @@ class Trainer:
                   f"bleu4={last_val.get('bleu4', 0):.4f} ({dt:.1f}s)")
             if self.should_stop:
                 break
-        save_checkpoint(os.path.join(self.logdir, "last.ckpt"), self.cfg,
-                        self._checkpoint_tree())
+        tree = self._checkpoint_tree()
+        if self.is_main:
+            save_checkpoint(os.path.join(self.logdir, "last.ckpt"), self.cfg, tree)
         self.logger.close()
         return last_val

@@ -25,11 +25,12 @@
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 import torch
 
 from ..config import SATConfig
+from ..parallel.mesh import MODEL_AXIS, ONE_RANK, Mesh
 
 FROZEN = "frozen"
 
@@ -94,16 +95,30 @@ def build_optimizer(cfg: SATConfig, named_params: NamedParams
 
 
 @torch.no_grad()
-def clip_gradients(cfg: SATConfig, params: Iterable[torch.Tensor]) -> None:
+def clip_gradients(cfg: SATConfig, params: Iterable[torch.Tensor],
+                   mesh: Mesh = ONE_RANK, sliced: Sequence[torch.Tensor] = ()) -> None:
     """Clip the gradients of ``params`` in place, by value or by their
-    global norm (``cfg.grad_clip``), where ``cfg.clip_value > 0``."""
+    global norm (``cfg.grad_clip``), where ``cfg.clip_value > 0``.  Under
+    vocab TP the norm is the whole model's: the squared norms of the
+    ``sliced`` leaves (the vocab slices) are summed over ``mesh``'s model
+    axis, the others are alike on every rank."""
     grads = [p for p in params if p.grad is not None]
     if cfg.clip_value <= 0 or not grads:
         return
     if cfg.grad_clip == "value":
         torch.nn.utils.clip_grad_value_(grads, cfg.clip_value)
-    else:
+    elif not sliced:
         torch.nn.utils.clip_grad_norm_(grads, cfg.clip_value)
+    else:
+        ids = {id(p) for p in sliced}
+        sq = lambda ps: sum((torch.linalg.vector_norm(p.grad) ** 2 for p in ps),
+                            torch.zeros((), device=grads[0].device))
+        total = torch.sqrt(sq([p for p in grads if id(p) not in ids])
+                           + mesh.sum(sq([p for p in grads if id(p) in ids]),
+                                      MODEL_AXIS))
+        coef = torch.clamp(cfg.clip_value / (total + 1e-6), max=1.0)
+        for p in grads:
+            p.grad.mul_(coef)
 
 
 def apply_group_lrs(optimizer: torch.optim.Optimizer,

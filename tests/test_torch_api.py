@@ -1,7 +1,7 @@
 """sat_tpu_torch's package surface against sat_tpu's, on the CPU: the lazy
 public API, the decode route rule on a CUDA device (no card needed: the
-rule reads the config and the call's arguments), the Trainer's one-device
-rule, and the loader's process shards against JAX's CaptionLoader
+rule reads the config and the call's arguments), the Trainer's mesh rule,
+and the loader's process shards against JAX's CaptionLoader
 (tests/test_multihost.py's pattern)."""
 
 import subprocess
@@ -22,17 +22,18 @@ from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def test_public_api_matches_jax():
-    """Every name of sat_tpu.__all__ but create_mesh (ROADMAP.md §1 item
-    11) resolves in sat_tpu_torch, to the port's own object."""
-    want = [n for n in sat_tpu.__all__ if n != "create_mesh"]
+    """Every name of sat_tpu.__all__, create_mesh included, resolves in
+    sat_tpu_torch, to the port's own object."""
+    want = list(sat_tpu.__all__)
     assert sorted(sat_tpu_torch.__all__) == sorted(want)
     assert dir(sat_tpu_torch) == sorted(want)
     for name in want:
         obj = getattr(sat_tpu_torch, name)
         if callable(obj):
             assert obj.__module__.startswith("sat_tpu_torch."), name
+    assert sat_tpu_torch.create_mesh.__module__ == "sat_tpu_torch.parallel.mesh"
     with pytest.raises(AttributeError):
-        sat_tpu_torch.create_mesh
+        sat_tpu_torch.no_such_name
 
 
 def test_import_does_not_import_torch():
@@ -122,12 +123,12 @@ def test_bf16_decoder_noise_runs():
 
 
 @pytest.mark.parametrize("mesh_shape,mesh_axes", [
-    ((2,), ("data",)), ((4, 2), ("data", "model")), ((1,), ("model",))])
+    ((2,), ("data",)), ((4, 2), ("data", "model")), ((1, 2), ("data", "model"))])
 def test_trainer_raises_for_a_mesh(mesh_shape, mesh_axes):
-    """Beyond one device on the data axis the Trainer raises serve's
-    NotImplementedError naming item 11, before it builds anything."""
+    """A mesh larger than the world (one process here) raises serve's
+    ValueError naming the launch it needs, before anything is built."""
     cfg = _n64(mesh_shape=mesh_shape, mesh_axes=mesh_axes)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node"):
         sat_tpu_torch.Trainer(cfg, device="cpu")
 
 

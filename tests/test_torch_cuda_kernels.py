@@ -172,8 +172,11 @@ def test_beam_search_runs_the_step_kernels(shape, early_exit):
     assert torch.isfinite(got.scores).all()
     assert (got.scores.max(1).values - ref.scores.max(1).values)[same].abs().max() <= 1e-3
     with pytest.raises(ValueError, match="decoder_noise"):
-        beam_search(p, cfg, a, decoder_noise=0.5, **kw)
+        beam_search(p, cfg, a, decoder_noise=0.5, fused=True, **kw)
+    n0 = KS.launches      # the default takes the plain path with noise (JAX's rule)
+    beam_search(p, cfg, a, decoder_noise=0.5, **kw)
     beam_search(p, cfg, a, decoder_noise=0.5, fused=False, **kw)
+    assert KS.launches == n0
 
 
 def test_loop_kernel_stops_once_every_row_finished():
@@ -274,3 +277,51 @@ def test_serve_runs_the_step_kernels(tmp_path, precision):
         for a, b in zip(recs, cpu):
             if "error" not in a and a["caption"] == b["caption"]:
                 assert abs(a["score"] - b["score"]) <= 1e-4
+
+
+def test_mesh_ranks_on_the_card(tmp_path):
+    """Two gloo ranks sharing the card (tests/_torch_mesh_rank.py, group
+    "card"), on the meshes (2,) and (1, 2) data model: one step's gradients
+    equal the one-process step's at tests/test_parallel.py:83's tolerance
+    (the vocab slices joined), and beam search
+    of each rank's rows runs the step kernels and gives the one-process
+    tokens, its scores within 1e-5."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    import _torch_mesh_rank as RK
+    _card()
+    torch.backends.cudnn.allow_tf32 = False
+    ref = RK.step_and_beam(RK.card_model(torch.device("cuda")), RK.make_batch(0))
+    ctx = tmp_path / "ctx.json"
+    ctx.write_text(json.dumps({"out": str(tmp_path)}))
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(here))
+    procs = [subprocess.Popen([sys.executable, os.path.join(here, "_torch_mesh_rank.py"),
+                               "card", str(r), "2", str(tmp_path / "init"), str(ctx)],
+                              env=env) for r in range(2)]
+    assert [p.wait(timeout=600) for p in procs] == [0, 0]
+    res = [torch.load(tmp_path / f"card_card_rank{r}.pt", weights_only=False)
+           for r in range(2)]
+    for tag in ("dp", "tp"):
+        got = [r[tag] for r in res]
+        assert abs(got[0]["loss"] - ref["loss"]) <= 1e-5 * abs(ref["loss"]), (
+            tag, got[0]["loss"], ref["loss"])
+        for name, g in ref["grads"].items():
+            keys = name.split(".")
+            ax = (0 if "embedding" in keys or keys[-1] == "b" else 1) \
+                if tag == "tp" and ("embedding" in keys or "out_proj" in keys) else None
+            full = got[0]["grads"][name] if ax is None else torch.cat(
+                [x["grads"][name] for x in got], dim=ax)
+            # tests/test_parallel.py:83's tolerance
+            atol = max(5e-4 * float(g.abs().max().clamp(min=1e-3)), 2e-7)
+            gap = float((full - g).abs().max())
+            assert gap <= atol, (tag, name, gap, atol)
+        for x in got:
+            gap = float((x["scores"] - ref["scores"]).abs().max())
+            assert x["launches"] > 0 and ref["launches"] > 0, (tag, x["launches"])
+            assert torch.equal(x["tokens"], ref["tokens"]), (tag, gap)
+            assert gap <= 1e-5, (tag, gap)
+

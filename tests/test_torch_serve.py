@@ -220,8 +220,9 @@ def test_one_device_only_and_no_card(served, tmp_path):
     argv = ["--checkpoint", ck, "--images", imgdir, "--output",
             str(tmp_path / "x.jsonl")]
     for bad in (["--mesh_shape", "4", "2", "--mesh_axes", "data", "model"],
-                ["--mesh_shape", "2"], ["--mesh_axes", "model"]):
-        with pytest.raises(NotImplementedError, match="item 11"):
+                ["--mesh_shape", "2"], ["--mesh_shape", "1", "2", "--mesh_axes",
+                                        "data", "model"]):
+        with pytest.raises(ValueError, match="torchrun --nproc_per_node"):
             serve.main(argv + bad, device="cpu")
     assert serve.main(["--checkpoint", ck, "--images",
                        str(tmp_path / "none*.png")], device="cpu") == 1
