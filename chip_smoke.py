@@ -11,8 +11,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    once) and print the build time and, for what it compiled, each kernel
    instance's registers and spills (``nvcc -Xptxas=-v``; a spill in a phase
    kernel of either source fails the run), and both launch plans at B = 64
-   (``[design]``: each kernel's grid, threads and shared memory; each tiled
-   product must fill 64 blocks);
+   (``[design]``: each kernel's grid, threads and shared memory; the loop
+   runs 7 kernels a step, 147 launches per decode of 21 steps; each tiled
+   product of the decode step must fill 64 blocks, and the loop's
+   vocabulary product, ``greedy_loop_logits``, too at V 4096 in 13-15);
 3. hold each kernel against its plain PyTorch version on the card, float32,
    n64 weights, B = 64, at the shapes of the main path, then at other shapes
    that take the kernels' other code paths (B = 192 and 300 at n64, the
@@ -33,7 +35,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    the beam path's 192 rows), and greedy and beam captioning end to end
    (encode + decode, images/s); beside them the busy device time per call
    from torch.profiler, each loop phase's busy time per decode and each step
-   kernel's busy time per call at 64 and 192 rows;
+   kernel's busy time per call at 64 and 192 rows; for information, the
+   ``select yardstick``: one ``torch.addmm(bout, t, Wout)`` at (64, E) x
+   (E, V) beside the busy time of ``greedy_loop_logits`` (also at each V
+   4096 shape of 13-15);
 8. training at the n64 configuration (the checkpoint header's settings at
    float32): (a) three ``Trainer.train_step`` calls (SGD, no momentum,
    epsilon 1, no augmentation, no dropout) from the checkpoint's weights on
@@ -134,7 +139,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    within 1e-3 of their scale, running statistics within rtol 1e-3); both
    decode kernels against their plain versions at L 196, D 2048 and the
    reference's 4096-word vocabulary (a synthetic one): the step at N 64 and
-   192, the loop at B 64, f32 and bf16, with both launch plans; (b) the
+   192, the loop at B 64, f32 and bf16, with both launch plans, and two
+   loop calls bit for bit alike at f32 and bf16 (also in 14 and 15); (b) the
    augment (crop, flip, jitter, the three warps each on a third of the
    images, noise) on the card against the CPU on the CPU's draws, at f32,
    bf16 and bf16 without the warps; (c) three SGD steps at B = 8 card
@@ -1953,7 +1959,8 @@ def decode_kernel_checks(model, imgs, rows, tag, loop=True):
         print(f"[design] {what}, f32 L={L} D={D} V={V}: " + "; ".join(
             f"{k} grid {g} x {n} threads, smem {dyn} B dynamic + {st} B static"
             for k, (g, n, dyn, st) in plan.items()), flush=True)
-        for k in ("hside", "gates", "deepout"):
+        tiled = ("hside", "gates", "deepout") + (("logits",) if "logits" in plan else ())
+        for k in tiled:
             check(plan[k][0][0] * plan[k][0][1] * plan[k][0][2] >= 64,
                   f"{tag} {what}: {k} fills 64 blocks")
     bf = lambda t: t.to(torch.bfloat16).contiguous()
@@ -1978,6 +1985,13 @@ def decode_kernel_checks(model, imgs, rows, tag, loop=True):
         out.update(la=la, loop=check_loop(f"{tag} L={L} D={D} V={V} B={B} f32", la),
                    loop_bf16=check_loop(f"{tag} L={L} D={D} V={V} B={B} bf16", la16,
                                         bf16=True)[:2])
+        # no float is summed by atomics: a second call repeats the first bit for bit
+        for label, args in (("f32", la), ("bf16", la16)):
+            pair = [KL.greedy_loop(*args, max_gen_length=S) for _ in range(2)]
+            check(all(torch.equal(x, y) for x, y in zip(*pair)),
+                  f"{tag} V={V} {label}: two greedy_loop calls agree bit for bit")
+        print(f"[check] {tag} L={L} D={D} V={V}: two greedy_loop calls agree bit for "
+              "bit, f32 and bf16", flush=True)
     return out
 
 
@@ -2167,6 +2181,34 @@ def cli_serve_lightning(cfg, js, tmp, epochs, n_keys, dev, tag):
     return out, model
 
 
+def select_yardstick(la, busy_parts, steps, card, tag):
+    """For information: one ``torch.addmm(bout, t, Wout)`` at (B, E) x (E,
+    V) on ``la``'s weights (the vocabulary product of one step, which the
+    port never calls), CUDA events, beside the busy ms per decode of the
+    loop's selection kernels (``busy_parts``: the profiler's per phase) and
+    the logits kernel's per step of the ``steps`` that did work."""
+    import torch
+    wout, bout, an = la[2], la[3], la[5]
+    V = bout.shape[0]
+    E = wout.shape[0]
+    w = wout[:, :V].contiguous().float()
+    g = torch.Generator(device="cpu").manual_seed(17)
+    t = torch.tanh(torch.randn(B, E, generator=g)).to(an.device)
+    addmm_ms = cuda_ms(lambda: torch.addmm(bout, t, w), calls=20)
+    sel = {k: busy_parts.get(k) for k in ("tproj", "logits", "select")}
+    total = None if None in sel.values() else sum(sel.values())
+    per_step = None if sel["logits"] is None else sel["logits"] / steps
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+    print(f"[time] {tag} ({card}) select yardstick, B={B} E={E} V={V}: torch.addmm(bout, t, "
+          f"Wout) {addmm_ms:.4f} ms per call (CUDA events); greedy_loop_logits busy "
+          f"{fmt(per_step)} per step of {steps}, {fmt(sel['logits'])} per decode; "
+          f"the selection's kernels per decode: tproj {fmt(sel['tproj'])}, select "
+          f"{fmt(sel['select'])}, together with logits {fmt(total)}", flush=True)
+    return {"addmm_ms": addmm_ms, "logits_busy_ms_per_step": per_step,
+            "select_kernels_busy_ms": sel, "select_kernels_total_ms": total,
+            "steps": steps}
+
+
 def main_path_and_times(model, imgs, kc, train, card, tag, extra=None):
     """The slice's main path, counted: greedy and beam captioning of
     ``model`` on ``imgs`` (encode, then the loop kernel; encode, then the
@@ -2233,6 +2275,9 @@ def main_path_and_times(model, imgs, kc, train, card, tag, extra=None):
     steps_run = torch.where(kl[4], kl[3] + 1, S + 1).sum().item()
     loop_bound, loop_by = bound(nbytes(*la[-4:], *la[0], *la[1:-5], *kl),
                                 steps_run * (step_flops(L, D, A, H, E) + 2 * E * V), "float32")
+    yardstick = select_yardstick(
+        la, times["greedy_loop"]["busy_parts_ms"],
+        int(torch.where(kl[4], kl[3] + 1, S + 1).max()), card, tag)
     print(f"[time] {tag} bounds: step at N={B_BEAM} {step_bound:.4f} ms ({step_by}); "
           f"greedy loop at B={B}, V={V}, {steps_run} row-steps {loop_bound:.4f} ms "
           f"({loop_by})", flush=True)
@@ -2253,6 +2298,7 @@ def main_path_and_times(model, imgs, kc, train, card, tag, extra=None):
          "bound_ms": loop_bound, "bound_by": loop_by, "library_ms": None},
     ]
     return {"launches": launches, "times": times, "kernels": kernels,
+            "yardstick": yardstick,
             "bounds": dict(step_bound_ms=step_bound, step_bound_by=step_by,
                            loop_bound_ms=loop_bound, loop_bound_by=loop_by,
                            loop_rows_steps=steps_run)}
@@ -3551,6 +3597,7 @@ def main():
           "finished), busy device time per decode, torch.profiler: "
           + ", ".join(f"{k} {'not measured' if v is None else f'{v:.3f} ms'}"
                       for k, v in phase_busy.items()), flush=True)
+    yardstick = select_yardstick(loop_args, phase_busy, batch_steps, card, "n64")
     e2e = {}
     for k in ms:
         if k.startswith("beam_captioning_"):
@@ -3614,7 +3661,7 @@ def main():
                   step_err_bf16=step_err16,
                   kernel_launches_per_call={"decoder_step": len(KS.KERNELS),
                                             "greedy_loop": len(KL.PHASES) * (S + 1)},
-                  loop_batch_steps=batch_steps,
+                  loop_batch_steps=batch_steps, select_yardstick=yardstick,
                   loop_rows_steps=steps_run,
                   captions=words[:8], finished=n_done, batch=B, max_gen_length=S)
 

@@ -5,12 +5,24 @@
 
 Builds the CUDA sources of the port in TREE (a checkout of this repository;
 by default the one this file lies in), decodes 64 seeded scenes with the n64
-checkpoint through the greedy loop kernels, f32 then bf16, and prints one
-JSON line: each loop phase's busy time per decode (ms) and, where TREE has
-the phased step kernels, each step kernel's busy time per call (us), both
-from torch.profiler (``chip_smoke.device_ms``), then each kernel instance's
-registers.  Run it in two trees in turns (parent, change, change, parent)
-within one call to compare their phases on one card.
+checkpoint through the greedy loop kernels, f32 then bf16, and again at the
+reference's 4,096 words (n64's widths, ``chip_smoke.vocab_config``'s
+synthetic words, a decoder drawn from seed 0, f32 and bf16: keys ending in
+``_v4096``), and prints one JSON line: each loop phase's busy time per
+decode (ms, the phases TREE's ``PHASES`` names, their ``total``, and the
+decode's CUDA-event ms, ``events``) and,
+where TREE has the phased step kernels, each step kernel's busy time per
+call at V 97 (us), both from torch.profiler (``chip_smoke.device_ms``), then
+each kernel instance's registers.  Last, at n64's widths and 4,096 and
+60,000 synthetic words, it times the two greedy routes of
+``decode.beam.greedy_decode`` end to end, the loop kernels
+(``fused="loop"``) and the step kernels with the vocabulary matmul
+(``fused=True``): every kernel's busy ms and the CUDA-event ms per decode
+(keys ``route_loop_*`` and ``route_step_*``), which is what
+``decode.beam.decode_route``'s choice between them rests on; a TREE whose
+loop kernels cannot take 60,000 words raises there.  Run it in two trees
+in turns (parent, change, change, parent) within one call to compare
+their phases on one card.
 """
 
 import json
@@ -39,20 +51,28 @@ def main():
     model, _ = load_model_from_checkpoint(
         os.path.join(tree, "tests", "data", "best_n64_r4_serving.ckpt"))
     imgs = torch.from_numpy(CS.scenes(64, model.cfg.input_size, seed=0)).cuda()
+    cfg = model.cfg
+    wide_cfg = CS.vocab_config(4096, cfg.encoder_arch, cfg.input_size, cfg.encoder_size,
+                               cfg.encoder_dim)
+    wide = TD.init_decoder_params(torch.Generator(device="cuda").manual_seed(0), wide_cfg)
     out = {}
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt)[6:]
         m = model.to(dt)
         an = m.encode(imgs)
-        ae = TD.attention_precompute(m.decoder, an)
-        h, c = TD.init_lstm_state(m.decoder, an, m.cfg)
-        h, c = h[0].contiguous(), c[0].contiguous()
-        args = (*KL.loop_weights(m.decoder, m.cfg, dt), m.cfg, an, ae, h, c)
-        loop = lambda: KL.greedy_loop(*args, max_gen_length=20)
-        for ph in KL.PHASES:
-            out[f"{ph}_{name}"] = CS.device_ms(loop, "greedy_loop_" + ph, calls=20)
-        out[f"total_{name}"] = CS.device_ms(loop, "greedy_loop_", calls=20)
-        if hasattr(KS, "KERNELS"):
+        for suffix, params, pcfg in (("", m.decoder, m.cfg),
+                                     ("_v4096", wide.to(dt), wide_cfg)):
+            ae = TD.attention_precompute(params, an)
+            h, c = TD.init_lstm_state(params, an, pcfg)
+            h, c = h[0].contiguous(), c[0].contiguous()
+            args = (*KL.loop_weights(params, pcfg, dt), pcfg, an, ae, h, c)
+            loop = lambda: KL.greedy_loop(*args, max_gen_length=20)
+            for ph in KL.PHASES:
+                out[f"{ph}_{name}{suffix}"] = CS.device_ms(loop, "greedy_loop_" + ph, calls=20)
+            out[f"total_{name}{suffix}"] = CS.device_ms(loop, "greedy_loop_", calls=20)
+            out[f"events_{name}{suffix}"] = CS.cuda_ms(loop)
+            if suffix or not hasattr(KS, "KERNELS"):
+                continue
             ids = torch.arange(64, device="cuda") % (m.cfg.vocab_size - 4) + 1
             e = TD.embed_tokens(m.decoder, ids, m.cfg).contiguous()
             sargs = (KS.step_weights(m.decoder, m.cfg, dt), m.cfg, e, h, c, an, ae)
@@ -62,6 +82,18 @@ def main():
                 out[f"step_{k}_{name}_us"] = us(CS.device_ms(step, "decoder_step_" + k,
                                                              calls=20))
             out[f"step_total_{name}_us"] = us(CS.device_ms(step, "decoder_step_", calls=20))
+    from sat_tpu_torch.decode import beam as TB
+    for v in (4096, 60000):
+        vcfg = CS.vocab_config(v, cfg.encoder_arch, cfg.input_size, cfg.encoder_size,
+                               cfg.encoder_dim)
+        vp = TD.init_decoder_params(torch.Generator(device="cuda").manual_seed(0), vcfg)
+        for dt in (torch.float32, torch.bfloat16):
+            name, p = str(dt)[6:], vp.to(dt)
+            an = model.to(dt).encode(imgs)
+            for route, fused in (("loop", "loop"), ("step", True)):
+                run = lambda: TB.greedy_decode(p, vcfg, an, max_gen_length=20, fused=fused)
+                out[f"route_{route}_{name}_v{v}"] = CS.device_ms(run, calls=5)
+                out[f"route_{route}_events_{name}_v{v}"] = CS.cuda_ms(run)
     print(tree, json.dumps(out))
     for log in logs.values():
         for kern, typ, regs, _ in CS.ptxas_summary(log):

@@ -7,7 +7,7 @@
 //   3. gates    [e | beta z] [Wie; Wiz] + g_h + bias, LSTM cell
 //   4. deepout  partial sums of [h' | z] [Wh; Wc], split over K
 // The caller sums phase 4's K slices in slice order and applies the deep
-// output's tanh (the loop in its select phase, the step in decoder_step_out).
+// output's tanh (the loop in greedy_loop_tproj, the step in decoder_step_out).
 //
 // What bounds it on an H100.  At B = 64 a step's products are a (64 x K) by
 // (K x N) matrix product per weight matrix: 4.6 M weights (18.6 MB in f32)

@@ -28,8 +28,7 @@ from ..config import SATConfig
 from ..kernels.decoder_step import (fused_decoder_step, fused_output_logits,
                                     fused_step_supported, step_weights)
 from ..kernels.greedy_loop import NEG_INF  # noqa: F401  (JAX's public name)
-from ..kernels.greedy_loop import (_special, greedy_loop_decode,
-                                   greedy_loop_supported, greedy_scan)
+from ..kernels.greedy_loop import _special, greedy_loop_decode, greedy_scan
 from ..models.decoder import (_linear, attention_precompute, beta_gate,
                               capped_embedding, decoder_step, deep_output,
                               embed_tokens, init_lstm_state,
@@ -150,54 +149,50 @@ LOOP_ROUTE, STEP_ROUTE = "loop kernel", "step kernels"
 
 def decode_route(device: torch.device, cfg: SATConfig, L: int, *,
                  noisy: bool = False, greedy: bool = False,
-                 itemsize: int = 4, vocab_sharded: bool = False) -> str:
+                 vocab_sharded: bool = False) -> str:
     """The implementation ``fused=None`` takes, named with its reason.
 
     On a CUDA device this is JAX's rule (``use_fused = fused and
     decoder_layers == 1 and not noisy``, ``sat_tpu/decode/beam.py``) with
-    the kernels' own gates: greedy decoding takes the loop kernel where
-    ``greedy_loop_supported`` holds, else the step kernels where
-    ``fused_step_supported`` holds; beam search takes the step kernels
-    where that holds and the call draws no hidden-state noise.  A decoder
-    holding a vocab TP slice (``vocab_sharded``) skips the loop kernel,
-    whose selection holds the whole vocabulary per row.  Everything
-    else is the plain path, named ``"plain (<reason>)"``.  The rule reads
-    only the config and the call's arguments: a kernel that fails to build
-    or launch fails the run, it never turns into the plain path."""
+    the kernels' one gate, ``fused_step_supported`` (attend's L scores fit
+    a block): greedy decoding takes the loop kernel, beam search the step
+    kernels where the call draws no hidden-state noise.  A decoder holding
+    a vocab TP slice (``vocab_sharded``) takes the step kernels for greedy
+    decoding too: the loop kernels combine the partials of every vocabulary
+    tile on one rank, so a vocab slice cannot take them.  Everything else
+    is the plain path, named ``"plain (<reason>)"``.  The rule reads only
+    the config and the call's arguments: a kernel that fails to build or
+    launch fails the run, it never turns into the plain path."""
     if device.type != "cuda":
         return "plain (not a CUDA device)"
     if cfg.decoder_layers != 1:
         return f"plain (decoder_layers {cfg.decoder_layers})"
     if noisy:
         return "plain (decoder_noise)"
-    if greedy and not vocab_sharded and greedy_loop_supported(cfg, L, itemsize):
-        return LOOP_ROUTE
-    if fused_step_supported(cfg, L):
-        return STEP_ROUTE
-    return f"plain (L {L} scores exceed the kernels' shared memory)"
+    if not fused_step_supported(cfg, L):
+        return f"plain (L {L} scores exceed the kernels' shared memory)"
+    return LOOP_ROUTE if greedy and not vocab_sharded else STEP_ROUTE
 
 
 def select_fused(fused: Union[None, bool, str], device: torch.device,
-                 cfg: SATConfig, L: int, itemsize: int,
+                 cfg: SATConfig, L: int,
                  vocab_sharded: bool = False) -> Union[bool, str]:
     """The implementation ``fused`` names for annotations on ``device``:
     ``None`` is ``decode_route``'s greedy route.  An explicit kernel path
-    raises where that kernel's gate fails (both need one LSTM layer; the
-    loop kernel, the whole vocabulary)."""
+    raises where the kernels' gate fails (one LSTM layer, attend's L scores
+    in a block), and the loop kernel where the decoder holds a vocab
+    slice."""
     if fused is None:
-        route = decode_route(device, cfg, L, greedy=True, itemsize=itemsize,
+        route = decode_route(device, cfg, L, greedy=True,
                              vocab_sharded=vocab_sharded)
         return "loop" if route == LOOP_ROUTE else route == STEP_ROUTE
-    if fused == "loop":
-        if vocab_sharded:
-            raise ValueError("greedy loop kernel: the decoder holds a vocab "
-                             "slice; the kernel selects over the whole vocabulary")
-        if not greedy_loop_supported(cfg, L, itemsize):
-            raise ValueError("greedy loop kernel: decoder_layers must be 1 and "
-                             "one row's state must fit shared memory")
-    elif fused and not fused_step_supported(cfg, L):
-        raise ValueError("fused step kernels: decoder_layers must be 1 and "
-                         "L attention scores must fit shared memory")
+    if fused == "loop" and vocab_sharded:
+        raise ValueError("greedy loop kernel: the decoder holds a vocab slice; "
+                         "the kernels combine every vocabulary tile on one rank")
+    if fused and not fused_step_supported(cfg, L):
+        name = "greedy loop kernel" if fused == "loop" else "fused step kernels"
+        raise ValueError(f"{name}: decoder_layers must be 1 and L attention "
+                         "scores must fit shared memory")
     return fused
 
 
@@ -233,7 +228,7 @@ def greedy_decode(params, cfg: SATConfig, annotations: torch.Tensor, *,
     annotations = annotations.contiguous()
     L, S = annotations.shape[1], max_gen_length
     fused = select_fused(fused, annotations.device, cfg, L,
-                         annotations.element_size(), vocab_sliced(params, cfg))
+                         vocab_sliced(params, cfg))
     att_enc = attention_precompute(params, annotations)
     h, c = init_lstm_state(params, annotations, cfg)
 
@@ -281,8 +276,7 @@ def select_beam_fused(fused: Optional[bool], device: torch.device,
         raise ValueError("fused step kernels: decoder_noise needs fused=False "
                          "(the kernels compute attention and the LSTM from "
                          "one hidden state)")
-    # (the itemsize gates the loop kernel only)
-    return bool(select_fused(bool(fused), device, cfg, L, itemsize=4))
+    return bool(select_fused(bool(fused), device, cfg, L))
 
 
 def _live_mean(scores: torch.Tensor, live: torch.Tensor) -> torch.Tensor:

@@ -44,11 +44,11 @@ ARGTYPES = {
     },
     "greedy_loop": {
         # dtype; annot, att_enc, w1, wx, wo, wf, bb, bias, emb, wout, bout,
-        # xt, yt, c, g1, part, done, tokens, alphas, scores, flen, fin;
-        # B, Bp, L, D, A, H, E, V, S, N1, G, Ep, K4, kc, splits, deep;
-        # temperature; start, end, pad, unk; stream
-        "sat_greedy_loop": [_I] + [_P] * 22 + [_I] * 16 + [_F] + [_I] * 4 + [_P],
-        # dtype, B, L, D, E, V, N1, G, Ep, splits; out (30 ints)
+        # xt, yt, c, g1, part, tt, vpart, done, tokens, alphas, scores, flen,
+        # fin; B, Bp, L, D, A, H, E, V, S, N1, G, Ep, K4, kc, splits, deep,
+        # VT; temperature; start, end, pad, unk; stream
+        "sat_greedy_loop": [_I] + [_P] * 24 + [_I] * 17 + [_F] + [_I] * 4 + [_P],
+        # dtype, B, L, D, E, V, N1, G, Ep, splits; out (42 ints)
         "sat_greedy_loop_plan": [_I] * 10 + [ctypes.POINTER(_I)],
     },
 }

@@ -157,6 +157,21 @@ def unpack_loop_weights(lw: LoopWeights) -> FusedWeights:
         wh=lw.wo[:H, :E].contiguous(), wc=lw.wo[H:, :E].contiguous())
 
 
+def pack_vocab_weights(wout: torch.Tensor) -> torch.Tensor:
+    """Wout (E, V) -> (E, pad8(V)) with zero columns past V, in wout's type:
+    every row a whole number of 16-byte copies for the loop's vocabulary
+    product (``csrc/greedy_loop.cu``, ``greedy_loop_logits``)."""
+    E, V = wout.shape
+    out = wout.new_zeros(E, pad8(V))
+    out[:, :V] = wout
+    return out
+
+
+def unpack_vocab_weights(wout: torch.Tensor, V: int) -> torch.Tensor:
+    """The inverse of ``pack_vocab_weights``: Wout (E, V), bit for bit."""
+    return wout[:, :V].contiguous()
+
+
 def step_weights(params, cfg: SATConfig,
                  dtype: torch.dtype = torch.float32) -> LoopWeights:
     """Decoder ParamTree -> the phase kernels' layout, in ``dtype``."""

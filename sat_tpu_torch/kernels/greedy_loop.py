@@ -12,18 +12,26 @@ with ``fused=False``, which differs from the Pallas kernel in two places:
   whole table once and the kernels use the capped table for both.
 
 Dropped TPU artifacts: the 8-row sublane padding, the one-hot embedding
-matmul (the select phase loads the row), the time-major output layout and
+matmul (the select kernel loads the row), the time-major output layout and
 the 13 MB VMEM gate.
 
-Design: one decode step for all B rows is five kernels (attention-side
+Design: one decode step for all B rows is seven kernels (attention-side
 product, attention, gate product with the LSTM cell, deep-output product,
-selection), launched 5 (S+1) times on the current stream by one C call.  The
-first four are the phases the fused step runs too (``csrc/decode_phases.cuh``):
-the three products are tiled over 64 rows, so each weight is read once per
-step per tile of 64 rows.  The kernel boundaries stand in for grid-wide
-barriers, and a device count of finished rows makes every later kernel
-return at once when the whole batch has finished.
-``decoder_step.pack_loop_weights`` fixes the layout the kernels index.
+then the selection as t, the vocabulary product with per-tile partials of
+the selection, and their combine per row), launched 7 (S+1) times on the
+current stream by one C call.  The first four are the phases the fused step
+runs too (``csrc/decode_phases.cuh``); the three products there and the
+vocabulary product are tiled over 64 rows, so each weight, Wout included, is
+read once per step per tile of 64 rows.  The vocabulary product splits V
+into tiles of ``VOCAB_TILE`` columns; each (row, tile) leaves one partial
+(the tile's max and sum of exponentials, its best unmasked logit and index),
+and the select kernel combines a row's partials in a fixed order
+(``tile_select`` is the same selection in PyTorch).  Nothing V-wide is held
+per row, so the vocabulary does not bound the kernels.  The kernel
+boundaries stand in for grid-wide barriers, and a device count of finished
+rows makes every later kernel return at once when the whole batch has
+finished.  ``decoder_step.pack_loop_weights`` and
+``decoder_step.pack_vocab_weights`` fix the layouts the kernels index.
 
 ``greedy_loop_decode`` launches the kernels for CUDA tensors and runs
 ``greedy_loop_plain``, the same function in PyTorch, for CPU tensors.  It
@@ -32,6 +40,7 @@ raises on anything the kernels do not take; it never falls back."""
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Tuple
 
 import torch
@@ -39,47 +48,55 @@ import torch
 from ..config import SATConfig
 from ..models.decoder import capped_embedding
 from . import _build
-from .decoder_step import (DEEPOUT_SPLITS, MAX_SMEM, _DTYPES, FusedWeights,
+from .decoder_step import (DEEPOUT_SPLITS, _DTYPES, FusedWeights,
                            LoopWeights, _check, _check_shapes,
-                           attend_smem_bytes, check_loop_weights, deepout_rows,
-                           pad8, ptrs, step_math, step_weights, stream_ptr,
-                           unpack_loop_weights)
+                           check_loop_weights, deepout_rows,
+                           fused_step_supported, pack_vocab_weights, pad8,
+                           ptrs, step_math, step_weights, stream_ptr,
+                           unpack_loop_weights, unpack_vocab_weights)
 
 # wrapper calls that launched the kernels, since import (read and reset by
 # chip_smoke.py)
 launches = 0
 
 NEG_INF = -1e9
-PHASES = ("hside", "attend", "gates", "deepout", "select")
-_THREADS = 256         # NT in csrc/decode_common.cuh
+PHASES = ("hside", "attend", "gates", "deepout", "tproj", "logits", "select")
+VOCAB_TILE = 16        # SEL_BN in csrc/greedy_loop.cu: columns per logits block
 
 
-def _pad4(n: int) -> int:
-    return (n + 3) // 4 * 4
-
-
-def select_smem_bytes(E: int, V: int, itemsize: int = 4) -> int:
-    """Dynamic shared memory of a select block: t, the logits and the
-    vocabulary product's split-K scratch (csrc/greedy_loop.cu::plan)."""
-    return 4 * (_pad4(E) + _pad4(V) + _THREADS * (16 // itemsize))
-
-
-def _fits(L: int, E: int, V: int, itemsize: int) -> bool:
-    return (attend_smem_bytes(L) <= MAX_SMEM
-            and select_smem_bytes(E, V, itemsize) <= MAX_SMEM)
-
-
-def greedy_loop_supported(cfg: SATConfig, L: int, itemsize: int = 4) -> bool:
-    """One LSTM layer, and the per-row shared memory of the attend (L scores)
-    and select (V + E floats and scratch) phases fits a block."""
-    return cfg.decoder_layers == 1 and _fits(L, cfg.embed_dim, cfg.vocab_size,
-                                             itemsize)
+def vocab_tiles(V: int) -> int:
+    """The logits kernel's column tiles: one partial per row and tile."""
+    return -(-V // VOCAB_TILE)
 
 
 def _special(cfg: SATConfig) -> Tuple[int, int, int, int]:
     s = cfg.vocab_stoi
     return (int(s["<START>"]), int(s["<END>"]), int(s["<PAD>"]),
             int(s["<UNK>"]))
+
+
+def selection_masks(cfg: SATConfig, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tokens the choice excludes, (V,) bool: (at step 0, at later
+    steps).  START and PAD always, END and UNK at step 0."""
+    start_i, end_i, pad_i, unk_i = _special(cfg)
+    later = torch.zeros(cfg.vocab_size, dtype=torch.bool, device=device)
+    later[[start_i, pad_i]] = True
+    step0 = later.clone()
+    step0[[end_i, unk_i]] = True
+    return step0, later
+
+
+def scan_select(logits: torch.Tensor, temperature: float,
+                masked: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``greedy_scan``'s selection from ``logits`` (B, V): the argmax of
+    scaled = logits / temperature with NEG_INF added where ``masked`` (ties
+    to the lower index), and its log-probability scaled[token] -
+    logsumexp(scaled), whose Z includes the masked tokens.  Returns (token
+    (B,) int64, log-probability (B,) float32)."""
+    scaled = logits.float() / temperature
+    token = torch.argmax(scaled + torch.where(masked, NEG_INF, 0.0), dim=-1)
+    return token, (scaled.gather(1, token[:, None])[:, 0]
+                   - torch.logsumexp(scaled, dim=-1))
 
 
 def greedy_scan(step, embed, cfg: SATConfig, h, c, L: int, *,
@@ -100,10 +117,7 @@ def greedy_scan(step, embed, cfg: SATConfig, h, c, L: int, *,
     scores (B,) float32, flen (B,) int32, finished (B,) bool)."""
     b, dev, S = h.shape[-2], h.device, max_gen_length
     start_i, end_i, pad_i, unk_i = _special(cfg)
-    always = torch.zeros(cfg.vocab_size, device=dev)
-    always[[start_i, pad_i]] = NEG_INF
-    step0 = always.clone()
-    step0[[end_i, unk_i]] = NEG_INF
+    step0, later = selection_masks(cfg, dev)
 
     tokens = torch.full((b, S + 2), pad_i, dtype=torch.int32, device=dev)
     tokens[:, 0] = start_i
@@ -113,11 +127,8 @@ def greedy_scan(step, embed, cfg: SATConfig, h, c, L: int, *,
     finished = torch.zeros(b, dtype=torch.bool, device=dev)
     for t in range(S + 1):
         logits, h, c, alpha = step(embed(tokens[:, t].long()), h, c)
-        # argmax + logsumexp: Z includes the masked tokens, the choice excludes them
-        scaled = logits.float() / temperature
-        token = torch.argmax(scaled + (step0 if t == 0 else always), dim=-1)
-        tok_logp = (scaled.gather(1, token[:, None])[:, 0]
-                    - torch.logsumexp(scaled, dim=-1))
+        token, tok_logp = scan_select(logits, temperature,
+                                      step0 if t == 0 else later)
         token = torch.where(finished, pad_i, token)
         scores = torch.where(finished, scores, scores + tok_logp)
         alphas[:, t] = torch.where(finished[:, None], 0.0, alpha.float())
@@ -131,9 +142,41 @@ def greedy_scan(step, embed, cfg: SATConfig, h, c, L: int, *,
     return tokens, alphas, scores, flen, finished
 
 
+def tile_select(logits: torch.Tensor, temperature: float, masked: torch.Tensor,
+                tile: int = VOCAB_TILE) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' selection in PyTorch, as ``greedy_loop_logits`` and
+    ``greedy_loop_select`` split it (the tests hold it against
+    ``greedy_scan``'s argmax and logsumexp).
+
+    ``logits`` (B, V) float32, ``masked`` (V,) bool (the tokens the choice
+    excludes at this step).  Each (row, tile of ``tile`` columns) gives a
+    partial over the tile's columns: the max m of scaled = logits /
+    temperature, the sum of exp(scaled - m), the best unmasked value and its
+    column (the lower on ties; V if the tile has none).  A row's partials
+    combine as M = max m, S = sum s exp(m - M), the best value (the lower
+    column on ties).  Returns (token (B,) int64, scaled[token] - (log S +
+    M) (B,)); a token >= V becomes 0, as in the kernel."""
+    b, V = logits.shape
+    nt = -(-V // tile)
+    pad = nt * tile - V
+    x = torch.nn.functional.pad(logits.float() / temperature, (0, pad),
+                                value=-math.inf).view(b, nt, tile)
+    m = x.max(-1).values
+    s = torch.exp(x - m[..., None]).sum(-1)
+    keep = torch.nn.functional.pad(~masked, (0, pad), value=False).view(nt, tile)
+    best, at = torch.where(keep, x, -math.inf).max(-1)   # the first maximum
+    col = torch.where(keep.any(-1), at + tile * torch.arange(nt, device=x.device), V)
+    M = m.max(-1).values
+    S = (s * torch.exp(m - M[:, None])).sum(-1)
+    value, j = best.max(-1)                               # the first tile
+    token = col.gather(1, j[:, None])[:, 0]
+    return torch.where(token >= V, 0, token), value - (torch.log(S) + M)
+
+
 def loop_weights(params, cfg: SATConfig, dtype: torch.dtype):
-    """(LoopWeights, capped embedding table (V, E), Wout (E, V), bout (V,)
-    f32), all in ``dtype`` apart from the float32 vectors."""
+    """(LoopWeights, capped embedding table (V, E), Wout packed to (E,
+    pad8(V)) by ``pack_vocab_weights``, bout (V,) f32), all in ``dtype``
+    apart from the float32 vectors."""
     lw = step_weights(params, cfg, dtype)
     emb = capped_embedding(params, cfg)
     if cfg.weight_tying and cfg.deep_output:
@@ -143,7 +186,7 @@ def loop_weights(params, cfg: SATConfig, dtype: torch.dtype):
         wout = params.out_proj.w
         bout = (params.out_proj.b.float() if "b" in params.out_proj
                 else torch.zeros(cfg.vocab_size, device=emb.device))
-    return (lw, emb.to(dtype).contiguous(), wout.to(dtype).contiguous(),
+    return (lw, emb.to(dtype).contiguous(), pack_vocab_weights(wout.to(dtype)),
             bout.float().contiguous())
 
 
@@ -154,10 +197,11 @@ def greedy_loop_plain(fw: LoopWeights, emb: torch.Tensor, wout: torch.Tensor,
                       max_gen_length: int, temperature: float = 1.0):
     """The kernels' function in PyTorch: ``greedy_scan`` over the kernels'
     step (values rounded to the input type where the kernels round them),
-    stopping once every row has finished, as the kernels do."""
+    stopping once every row has finished, as the kernels do.  ``wout`` is
+    packed as the kernels take it (``loop_weights``)."""
     dt = annotations.dtype
     w = FusedWeights(*(x.float() for x in unpack_loop_weights(fw)))
-    wout_f = wout.float()
+    wout_f = unpack_vocab_weights(wout, bout.shape[0]).float()
 
     def step(e, h, c):
         t, h, c, _, alpha = step_math(w, cfg.deep_output, dt, e, h, c,
@@ -189,7 +233,7 @@ def loop_plan(B: int, L: int, D: int, A: int, H: int, E: int, V: int,
     of ``PHASES``, (grid (x, y, z), threads, dynamic and static shared memory
     bytes).  Needs the built library."""
     lib = _build.load("greedy_loop")
-    out = (ctypes.c_int * 30)()
+    out = (ctypes.c_int * (6 * len(PHASES)))()
     _build.check(lib, lib.sat_greedy_loop_plan(
         _DTYPES[dtype], B, L, D, E, V, pad8(A + D + 4 * H), pad8(4 * H),
         pad8(E), DEEPOUT_SPLITS, out), "greedy_loop plan")
@@ -233,25 +277,30 @@ def run_loop(lw: LoopWeights, emb, wout, bout, cfg: SATConfig, annotations,
                 emb=emb, wout=wout), dt, dev)
     _check(dict(bout=bout), torch.float32, dev)
     _check_shapes(dict(att_enc=(att_enc.shape, (b, L, A)), h0=(h0.shape, (b, H)),
-                       c0=(c0.shape, (b, H)), wout=(wout.shape, (E, V)),
+                       c0=(c0.shape, (b, H)), wout=(wout.shape, (E, pad8(V))),
                        bout=(bout.shape, (V,)), done=(done.shape, (1,))))
     check_loop_weights(lw, D, A, H, E, dt, dev)
-    if not _fits(L, E, V, annotations.element_size()):
-        raise ValueError("greedy loop: a row's state exceeds shared memory")
+    if wout.data_ptr() % 16:
+        raise ValueError("wout must be 16-byte aligned")
+    if not fused_step_supported(cfg, L):
+        raise ValueError("greedy loop: L attention scores exceed shared memory")
     start_i, end_i, pad_i, unk_i = _special(cfg)
     n1, G, Ep = lw.w1.shape[1], lw.wx.shape[1], lw.wo.shape[1]
     K4, kc = deepout_rows(H, D, cfg.deep_output)
-    bp = pad8(b)
+    bp, vt = pad8(b), vocab_tiles(V)
 
     # feature-major activations, padding columns zero: xt = [e; beta z],
-    # yt = [h; z]; c and the products' outputs in float32
+    # yt = [h; z], tt = t; c and the products' outputs in float32; one
+    # 16-byte partial per row and vocabulary tile
     xt = torch.zeros(E + D, bp, dtype=dt, device=dev)
     xt[:E, :b] = emb[start_i][:, None]
     yt = torch.zeros(H + D, bp, dtype=dt, device=dev)
     yt[:H, :b] = h0.T
+    tt = torch.zeros(E, bp, dtype=dt, device=dev)
     c = c0.to(torch.float32, copy=True)
     g1 = torch.empty(b, n1, dtype=torch.float32, device=dev)
     part = torch.empty(DEEPOUT_SPLITS, b, Ep, dtype=torch.float32, device=dev)
+    vpart = torch.empty(b, vt, 4, dtype=torch.float32, device=dev)
 
     tokens = torch.full((b, S + 2), pad_i, dtype=torch.int32, device=dev)
     tokens[:, 0] = start_i
@@ -264,9 +313,10 @@ def run_loop(lw: LoopWeights, emb, wout, bout, cfg: SATConfig, annotations,
         err = lib.sat_greedy_loop(
             _DTYPES[dt], *ptrs(annotations, att_enc, lw.w1, lw.wx, lw.wo, lw.wf,
                                lw.bb, lw.bias, emb, wout, bout, xt, yt, c, g1,
-                               part, done, tokens, alphas, scores, flen, finished),
+                               part, tt, vpart, done, tokens, alphas, scores,
+                               flen, finished),
             b, bp, L, D, A, H, E, V, S, n1, G, Ep, K4, kc, DEEPOUT_SPLITS,
-            int(cfg.deep_output), float(temperature), start_i, end_i, pad_i,
-            unk_i, stream_ptr(dev))
+            int(cfg.deep_output), vt, float(temperature), start_i, end_i,
+            pad_i, unk_i, stream_ptr(dev))
     _build.check(lib, err, "greedy_loop kernels")
     return tokens, alphas, scores, flen, finished

@@ -51,7 +51,7 @@ CUDA = torch.device("cuda")
     ({"decoder_layers": 2}, False, False, "plain (decoder_layers 2)"),
     ({"decoder_layers": 2}, True, False, "plain (decoder_layers 2)"),
     ({}, False, True, "loop kernel"),
-    ({"vocab_size": 60000}, False, True, "step kernels"),
+    ({"vocab_size": 60000}, False, True, "loop kernel"),
     ({"decoder_layers": 2}, False, True, "plain (decoder_layers 2)"),
 ])
 def test_decode_route_on_the_card(cfg_kw, noisy, greedy, want):
@@ -61,7 +61,7 @@ def test_decode_route_on_the_card(cfg_kw, noisy, greedy, want):
     cfg = _n64(**cfg_kw)
     assert TB.decode_route(CUDA, cfg, 49, noisy=noisy, greedy=greedy) == want
     if greedy:
-        assert TB.select_fused(None, CUDA, cfg, 49, 4) == {
+        assert TB.select_fused(None, CUDA, cfg, 49) == {
             "loop kernel": "loop", "step kernels": True}.get(want, False)
     else:
         assert TB.select_beam_fused(None, CUDA, cfg, 49, noisy) is (want == "step kernels")
@@ -78,7 +78,7 @@ def test_decode_route_explicit_kernels_still_raise():
     with pytest.raises(ValueError, match="decoder_layers"):
         TB.select_beam_fused(True, CUDA, cfg2, 49, False)
     with pytest.raises(ValueError, match="decoder_layers"):
-        TB.select_fused("loop", CUDA, cfg2, 49, 4)
+        TB.select_fused("loop", CUDA, cfg2, 49)
     # an L whose scores exceed the step kernels' shared memory
     assert TB.decode_route(CUDA, _n64(), 10 ** 6).startswith("plain (L 1000000")
 

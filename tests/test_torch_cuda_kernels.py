@@ -66,6 +66,10 @@ LOOP_SHAPES = SHAPES + [
 ]
 # the step kernels also at three 64-row tiles (beam search's B k rows)
 STEP_SHAPES = LOOP_SHAPES + [(256, 1024, 128, 512, 97, 49, 192)]
+# the loop kernels also at the reference's 4,096 words, at a vocabulary that
+# leaves its last tile partial, and at 60,000 words (3,750 vocabulary tiles)
+WIDE_VOCAB = [(256, 1024, 128, 512, V, 49, 64) for V in (4096, 4099, 60000)]
+LOOP_SHAPES = LOOP_SHAPES + WIDE_VOCAB
 
 
 def device_kernels(fn):
@@ -177,6 +181,57 @@ def test_beam_search_runs_the_step_kernels(shape, early_exit):
     beam_search(p, cfg, a, decoder_noise=0.5, **kw)
     beam_search(p, cfg, a, decoder_noise=0.5, fused=False, **kw)
     assert KS.launches == n0
+
+
+def _loop_args(shape, dtype=torch.float32, seed=2):
+    """The loop kernels' arguments at ``shape`` with seeded weights and
+    annotations on the card."""
+    dev = _card()
+    E, D, A, H, V, L, B = shape
+    cfg, p = make(E, D, A, H, V)
+    p = p.to(dev).to(dtype)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    a = torch.randn(B, L, D, generator=g).to(dev, dtype)
+    att_enc = TD.attention_precompute(p, a).contiguous()
+    h, c = TD.init_lstm_state(p, a, cfg)
+    return (*KL.loop_weights(p, cfg, dtype), cfg, a, att_enc, h[0].contiguous(),
+            c[0].contiguous())
+
+
+def test_loop_kernel_ties_go_to_the_lower_index():
+    """Wout and bout repeat the first vocabulary tile across all 256 tiles,
+    so every logit of a row ties with its copies, bit for bit, in other
+    tiles: the kernel picks the lowest unmasked copy (a column of the first
+    tile, or of the second for a copy of PAD's column 0; never END, whose
+    copy in the first tile is lower), as its plain version does."""
+    n = KL.VOCAB_TILE
+    lw, emb, wout, bout, cfg, *rest = _loop_args(WIDE_VOCAB[0])
+    V = bout.shape[0]
+    base = torch.arange(V, device=bout.device) % n
+    wout[:, :V] = wout[:, base]
+    bout = bout[base].contiguous()
+    args = (lw, emb, wout, bout, cfg, *rest)
+    got = KL.greedy_loop(*args, max_gen_length=12)
+    ref = KL.greedy_loop_plain(*args, max_gen_length=12)
+    torch.cuda.synchronize()
+    words = got[0][:, 1:]
+    assert ((words >= 1) & (words < 2 * n)).all() and not got[4].any()
+    assert ((words < n) | (words % n == 0)).all()
+    same = (got[0] == ref[0]).all(-1) & (got[3] == ref[3])
+    assert same.float().mean().item() >= 0.99
+    assert (got[2] - ref[2])[same].abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_loop_kernel_repeats_bit_for_bit(dtype):
+    """No float is summed by atomics: two calls at V 4,096 give the same
+    tokens, lengths, scores and alphas, bit for bit."""
+    args = _loop_args(WIDE_VOCAB[0], dtype)
+    first = KL.greedy_loop(*args, max_gen_length=20)
+    second = KL.greedy_loop(*args, max_gen_length=20)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 def test_loop_kernel_stops_once_every_row_finished():

@@ -25,12 +25,13 @@ T = torch.from_numpy
 
 
 def make(deep=True, tying=False, embed_norm=None, end_bias=0.0, layers=1,
-         seed=3, v=31):
+         seed=3, v=31, **widths):
     stoi = {f"w{i}": i for i in range(1, v - 3)}
     stoi.update({"<UNK>": v - 3, "<START>": v - 2, "<END>": v - 1, "<PAD>": 0})
     kw = dict(vocab_size=v, vocab_stoi=stoi, embed_dim=10, encoder_dim=8,
               attention_dim=8, decoder_dim=16, decoder_layers=layers,
               deep_output=deep, weight_tying=tying, embed_norm=embed_norm)
+    kw.update(widths)
     jp = JD.init_decoder_params(jax.random.PRNGKey(seed), JaxConfig(**kw))
     jp = jax.tree_util.tree_map(np.asarray, jp)
     if end_bias:
@@ -157,6 +158,19 @@ def test_finished_row_alphas():
     assert np.abs(pallas["alphas"] - scan["alphas"]).max() > 1e-2
 
 
+@pytest.mark.parametrize("jax_fused", [False, "loop"])
+def test_loop_at_a_wide_vocabulary_matches_jax(jax_fused):
+    """The port's loop kernel path (its plain version on CPU tensors, which
+    reads the packed Wout) at V 4,099, a vocabulary of 257 tiles whose last
+    holds three words, against JAX's scan and its Pallas loop kernel in
+    interpret mode."""
+    jcfg, tcfg, jp, tp = make(v=4099, embed_dim=8, decoder_dim=12,
+                              encoder_dim=16, attention_dim=8)
+    a = annots(jcfg, b=13, L=5)
+    _assert_same(_port_run(tp, tcfg, a, 4, 1.0, "loop"),
+                 _jax_run(jp, jcfg, a, 4, 1.0, fused=jax_fused))
+
+
 def test_cpu_tensors_take_the_plain_version():
     jcfg, tcfg, jp, tp = make(end_bias=1.0)
     a = T(annots(jcfg))
@@ -198,14 +212,14 @@ def test_gates():
     _, n64, _, _ = make(v=97)
     n64 = n64.replace(embed_dim=256, encoder_dim=1024, attention_dim=128,
                       decoder_dim=512)
-    assert KL.greedy_loop_supported(n64, 49)
-    assert KL.greedy_loop_supported(n64, 49, itemsize=2)
+    greedy = lambda cfg, L: decode_route(torch.device("cuda"), cfg, L, greedy=True)
+    assert greedy(n64, 49) == "loop kernel"
     assert KS.fused_step_supported(n64, 49)
-    assert not KL.greedy_loop_supported(n64.replace(decoder_layers=2), 49)
+    assert greedy(n64.replace(decoder_layers=2), 49) == "plain (decoder_layers 2)"
     assert not KS.fused_step_supported(n64.replace(decoder_layers=2), 49)
-    big = n64.replace(vocab_size=60000)  # the logits row alone is 240 KB
-    assert not KL.greedy_loop_supported(big, 196)
-    # the step keeps no logits: only attend's L scores per block count
+    big = n64.replace(vocab_size=60000)  # no kernel holds a logits row
+    assert greedy(big, 196) == "loop kernel"
+    # only attend's L scores per block count
     assert KS.fused_step_supported(big, 196)
     assert KS.fused_step_supported(n64, 58112)       # 232,448 bytes of scores
     assert not KS.fused_step_supported(n64, 58113)
@@ -229,14 +243,14 @@ def _n64(**kw):
 
 @pytest.mark.parametrize("cfg_kw,device,want", [
     ({}, "cuda", "loop"),
-    ({"vocab_size": 60000}, "cuda", True),  # logits too big for the loop kernel
+    ({"vocab_size": 60000}, "cuda", "loop"),  # no V-wide state in the loop kernels
     ({"decoder_layers": 2}, "cpu", False),
     ({}, "cpu", False),
 ])
 def test_default_selection(cfg_kw, device, want):
     """fused=None: the loop kernel on the card where it fits, else the step
     kernel; the plain path only for CPU tensors."""
-    assert select_fused(None, torch.device(device), _n64(**cfg_kw), 49, 4) == want
+    assert select_fused(None, torch.device(device), _n64(**cfg_kw), 49) == want
 
 
 @pytest.mark.parametrize("fused", [None, True, "loop"])
@@ -245,10 +259,10 @@ def test_two_layer_kernel_paths_raise_on_the_card(fused):
     the default takes the plain path by the stated rule (decode_route)."""
     cuda, cfg2 = torch.device("cuda"), _n64(decoder_layers=2)
     if fused is None:
-        assert select_fused(None, cuda, cfg2, 49, 4) is False
+        assert select_fused(None, cuda, cfg2, 49) is False
         assert decode_route(cuda, cfg2, 49, greedy=True) == "plain (decoder_layers 2)"
     else:
         with pytest.raises(ValueError, match="decoder_layers"):
-            select_fused(fused, cuda, cfg2, 49, 4)
+            select_fused(fused, cuda, cfg2, 49)
     assert select_fused(False, torch.device("cuda"),
-                        _n64(decoder_layers=2), 49, 4) is False
+                        _n64(decoder_layers=2), 49) is False

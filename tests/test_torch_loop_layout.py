@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from sat_tpu_torch.config import SATConfig
+from sat_tpu_torch.decode.beam import LOOP_ROUTE, decode_route
 from sat_tpu_torch.kernels import decoder_step as KS
 from sat_tpu_torch.kernels import greedy_loop as KL
 from sat_tpu_torch.kernels.decoder_step import (FusedWeights,
@@ -175,11 +176,61 @@ def test_layout_pads_columns_to_whole_copies():
 
 
 def test_loop_gate_uses_select_state():
-    """The gate is the phase kernels' own need: one layer, and a select
-    block's t, logits and scratch (V + E floats and more) within a block's
-    shared memory."""
+    """The gate is the phase kernels' own need: one layer, and attend's L
+    scores within a block's shared memory.  The selection holds nothing
+    V-wide per block: a row's state is one 16-byte partial per vocabulary
+    tile, in global memory, so the vocabulary does not bound the gate."""
     cfg, _, _ = make(256, 1024, 128, 512, 97)
-    assert KL.select_smem_bytes(256, 97) < 8 * 1024
-    assert KL.greedy_loop_supported(cfg, 49)
-    assert KL.greedy_loop_supported(cfg.replace(vocab_size=50000), 196)
-    assert not KL.greedy_loop_supported(cfg.replace(vocab_size=60000), 196)
+    assert KL.vocab_tiles(97) == 7 and KL.vocab_tiles(60000) == 3750
+    loop = lambda c, L: decode_route(torch.device("cuda"), c, L, greedy=True)
+    assert loop(cfg, 49) == LOOP_ROUTE
+    assert loop(cfg.replace(vocab_size=50000), 196) == LOOP_ROUTE
+    assert loop(cfg.replace(vocab_size=60000), 196) == LOOP_ROUTE
+
+
+@pytest.mark.parametrize("V", [97, 4096, 4099])
+@pytest.mark.parametrize("tile", [KL.VOCAB_TILE, 12])
+@pytest.mark.parametrize("temperature", [1.0, 0.7])
+@pytest.mark.parametrize("t", [0, 3])
+def test_tile_select_matches_scan_select(V, tile, temperature, t):
+    """The loop kernels' selection as tile partials and their combine
+    (``tile_select``) against ``greedy_scan``'s argmax and logsumexp
+    (``scan_select``): tokens equal, log-probabilities within 1e-6 of their
+    scale (float32 sums in another order).  Rows: equal maxima in two tiles
+    and within one tile (the lower index), START, PAD, END and UNK holding
+    the row's maximum (END and UNK masked at step 0 only; END and UNK lie
+    in the last tile, which V 97 and 4,099 leave partial)."""
+    cfg, _, _ = make(8, 8, 8, 8, V)
+    unk, start, end, pad = V - 3, V - 2, V - 1, 0
+    rng = np.random.default_rng(V + tile + t)
+    logits = torch.from_numpy(rng.normal(scale=3.0, size=(8, V)).astype(np.float32))
+    top = float(logits.max()) + 1.0
+    lo, hi = 5, V // 2 + 3              # different tiles for either width
+    logits[0, [hi, lo]] = top
+    for row, tok in ((1, start), (2, pad), (3, end), (4, unk)):
+        logits[row, tok] = top + 1.0
+    logits[6, lo:lo + 2] = top
+    masked = KL.selection_masks(cfg)[0 if t == 0 else 1]
+    want_tok, want_lp = KL.scan_select(logits, temperature, masked)
+    got_tok, got_lp = KL.tile_select(logits, temperature, masked, tile)
+    assert want_tok[0] == lo and want_tok[6] == lo
+    assert want_tok[1] != start and want_tok[2] != pad
+    assert (want_tok[3] == end) == (t > 0) and (want_tok[4] == unk) == (t > 0)
+    assert torch.equal(got_tok, want_tok)
+    scale = want_lp.abs().max().item()
+    assert (got_lp - want_lp).abs().max().item() <= 1e-6 * scale
+
+
+@pytest.mark.parametrize("V", [97, 4099])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vocab_layout_pads_columns(V, dtype):
+    """Wout packed to (E, pad8(V)): whole 16-byte rows, zero past V, and
+    unpacked to ``out_proj.w`` in the type, bit for bit."""
+    cfg, params, _ = make(10, 8, 8, 12, V)
+    _, _, wout, bout = KL.loop_weights(params, cfg, dtype)
+    assert wout.shape == (10, KS.pad8(V)) and wout.dtype == dtype
+    assert wout.is_contiguous() and bout.shape == (V,)
+    assert not wout[:, V:].any()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    back = KS.unpack_vocab_weights(wout, V)
+    assert torch.equal(back.view(bits), params.out_proj.w.to(dtype).view(bits))
