@@ -12,13 +12,20 @@ Phases, each of which fails the run (nonzero exit, no result line):
    instance's registers and spills (``nvcc -Xptxas=-v``; a spill in a phase
    kernel of either source fails the run), and both launch plans at B = 64
    (``[design]``: each kernel's grid, threads and shared memory; the loop
-   runs 7 kernels a step, 147 launches per decode of 21 steps; each tiled
-   product of the decode step must fill 64 blocks, and the loop's
-   vocabulary product, ``greedy_loop_logits``, too at V 4096 in 13-15);
+   runs 8 kernels a step, 168 launches per decode of 21 steps, the step 7
+   a call; each tiled product of the decode step must fill 64 blocks, and
+   the loop's vocabulary product, ``greedy_loop_logits``, too at V 4096 in
+   13-15), and the step's attention kernels at the beam path's N = 192
+   rows over 64 images (their grids; no thread-block cluster);
 3. hold each kernel against its plain PyTorch version on the card, float32,
    n64 weights, B = 64, at the shapes of the main path, then at other shapes
    that take the kernels' other code paths (B = 192 and 300 at n64, the
    golden checkpoint's narrow widths at B = 13, and the step in bfloat16);
+   the step on grouped rows, as beam search calls it (``check_grouped``: N
+   = 192 over 64 images, k = 3, and N = 320 over 16, k = 20, as ``search``'s
+   beamk 20), f32 and bf16, against the plain version and bit for bit equal
+   to the call on k-fold copies of each image and to a second call (also
+   at each configuration of 13-15);
 4. greedy path: load the n64 checkpoint, encode 64 seeded 224 px images,
    greedy captioning through the loop kernel (default), the step kernel
    (``fused=True``) and the plain path (``fused=False``), with launch counts
@@ -139,8 +146,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    within 1e-3 of their scale, running statistics within rtol 1e-3); both
    decode kernels against their plain versions at L 196, D 2048 and the
    reference's 4096-word vocabulary (a synthetic one): the step at N 64 and
-   192, the loop at B 64, f32 and bf16, with both launch plans, and two
-   loop calls bit for bit alike at f32 and bf16 (also in 14 and 15); (b) the
+   192 and grouped at k 3 and 20 (``check_grouped``), the loop at B 64, f32
+   and bf16, with both launch plans, and two loop calls bit for bit alike
+   at f32 and bf16 (also in 14 and 15); (b) the
    augment (crop, flip, jitter, the three warps each on a third of the
    images, noise) on the card against the CPU on the CPU's draws, at f32,
    bf16 and bf16 without the warps; (c) three SGD steps at B = 8 card
@@ -152,8 +160,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    bit for bit, ``serve`` of it on phase 10's JPEGs with the first 16
    records equal to the CPU's, the checkpoint as a Lightning ``.ckpt`` read
    back bit for bit; the main path of the slice counted (greedy and beam
-   captioning of the trained model); (e) encode, the step at N 192, the
-   greedy loop, greedy and beam captioning, the augment with and without
+   captioning of the trained model); (e) encode, the step at N 192 over 64
+   images (the beam path's call), the greedy loop, greedy and beam captioning, the augment with and without
    jitter and the warps: ms, busy ms and idle share, and both kernels'
    bounds at these shapes (two more entries of the ``kernels`` line).
 
@@ -169,9 +177,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    value (the gap to the CPU's f32 printed); both decode kernels against their plain
    versions at L 49, D 576 and V 4096, the step at N 64 and 192 and the
    loop at B 64, f32 and bf16, and the step at N 192 at D 960
-   (mobilenet_v3_large) and 1280 (mobilenet_v2), where the last 256-wide
-   slice of ``attend`` is partial; (b) three SGD steps at B = 8 card
-   against CPU (losses, decoder weights, BatchNorm statistics, and the
+   (mobilenet_v3_large) and 1280 (mobilenet_v2), plain and grouped (the
+   last 128-wide slice of ``attend`` is partial at 960); (b) three SGD
+   steps at B = 8 card against CPU (losses, decoder weights, BatchNorm statistics, and the
    encoder's update held against the CPU's float64 steps), then 30 steps at B = 64 on phase 9's first train batch, whose loss must
    fall by 10 %, the step's ms, busy ms by part and peak memory; (c) as
    13 (d): the CLI for 2 epochs, ``last.ckpt`` bit for bit, ``serve`` of
@@ -191,8 +199,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    decode kernels against their plain versions at L 49, D 1024 and at L
    169, D 512 (V 4096), the step at N 64 and 192 and the loop at B 64, f32
    and bf16, and the step at N 192 at D 1664, 1920 and 2208 (densenet169,
-   201, 161), where the last 256-wide slice of ``attend`` is partial; (b)
-   as 14 (b) at densenet121; (c) as 14 (c) for densenet121 (2 epochs) and
+   201, 161), plain and grouped (the last 128-wide slice of ``attend`` is
+   partial at 2208); (b) as 14 (b) at densenet121; (c) as 14 (c) for densenet121 (2 epochs) and
    squeezenet1_1 (1 epoch: its empty ``batch_stats`` through the writer,
    the Lightning file and the serve), and a ``Trainer`` resumed from
    squeezenet1_1's ``last.ckpt`` with its weights bit for bit; the main
@@ -282,6 +290,7 @@ DEVICE = "cuda"
 B, S = 64, 20
 K_BEAM = 3     # beam width of the beam path (the serving default)
 B_BEAM = B * K_BEAM   # beam search's B k rows: three 64-row tiles
+GROUP_K, GROUP_N = 20, 320   # search's beamk 20 over 16 images
 B_WIDE = 300   # five 64-row tiles, more rows than an H100 has SMs
 B_TRAIN, TRAIN_STEPS = 64, 30   # the n64 configuration's batch; steps of 8 (b)
 B_TRAIN_CHECK = 8               # rows of the card-against-CPU steps, 8 (a)
@@ -720,6 +729,70 @@ def check_step(label, args, rel=1e-4):
     print(f"[check] decoder_step kernels vs plain, {label}: max abs err "
           + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()), flush=True)
     return got, errs
+
+
+def check_grouped(label, args, k, rel=1e-4):
+    """The step kernels on grouped rows, as beam search calls them: ``args``
+    hold the annotations and att_enc of N / k images for N rows.  Against
+    the plain version (``check_step``), and bit for bit equal to the same
+    call on k-fold copies of each image (the kernels sum over a row in one
+    order whatever k) and to a second call (no float atomics).  Returns the
+    outputs and each one's max abs error."""
+    import torch
+    from sat_tpu_torch.kernels import decoder_step as KS
+    got, errs = check_step(f"{label} k={k}", args, rel)
+    rep = lambda x: x.repeat_interleave(k, 0).contiguous()
+    copied = KS.fused_decoder_step(*args[:5], rep(args[5]), rep(args[6]))
+    again = KS.fused_decoder_step(*args)
+    torch.cuda.synchronize()
+    for name, g, x, y in zip(("t", "h", "c", "z", "alpha"), got, copied, again):
+        check(torch.equal(g, x), f"{label} k={k}: {name} equals the call on k-fold "
+              "copies bit for bit")
+        check(torch.equal(g, y), f"{label} k={k}: {name} of two calls agree bit for bit")
+    print(f"[check] {label} k={k}: the grouped step equals the call on k-fold copies "
+          "and a second call, bit for bit", flush=True)
+    return got, errs
+
+
+def grouped_args(params, cfg, an, att_enc, k, n, seed, dtype=None):
+    """Step arguments for n rows over the first n / k images of ``an``,
+    k rows to an image, as beam search forms them: each image's initial
+    state repeated over its k rows (with seeded noise of 0.1, as slots
+    diverge after the first step) and seeded tokens' embeddings."""
+    import torch
+    from sat_tpu_torch.kernels import decoder_step as KS
+    from sat_tpu_torch.models import decoder as TD
+    an, ae = an[:n // k].contiguous(), att_enc[:n // k].contiguous()
+    h0, c0 = (t[0].repeat_interleave(k, 0) for t in TD.init_lstm_state(params, an, cfg))
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    h0, c0 = ((t + 0.1 * torch.randn(t.shape, generator=g).to(t.device)).contiguous()
+              for t in (h0, c0))
+    ids = torch.from_numpy(np.random.default_rng(seed).integers(
+        1, cfg.vocab_size - 3, size=n)).to(an.device)
+    e = TD.embed_tokens(params, ids, cfg).contiguous()
+    args = (KS.step_weights(params, cfg), cfg, e, h0, c0, an, ae)
+    if dtype is None:
+        return args
+    cast = lambda t: t.to(dtype).contiguous()
+    return (KS.step_weights(params, cfg, dtype), cfg, *map(cast, args[2:]))
+
+
+def attend_total(busy, label=""):
+    """Adds ``attend_total{label}``, the busy time of the scores and attend
+    kernels together (phase 2), to ``busy`` where both were measured."""
+    parts = [busy.get(f"{k}{label}") for k in ("scores", "attend")]
+    busy[f"attend_total{label}"] = None if None in parts else sum(parts)
+    return busy
+
+
+def attend_design(tag, plan, n, k):
+    """Prints the step's attention kernels of ``plan`` (N = n rows, k to an
+    image): their grids, threads and shared memory; no cluster."""
+    (gs, ts, _, _), (ga, ta, da, _) = plan["scores"], plan["attend"]
+    print(f"[design] {tag} attend at N={n}, k={k}: scores grid {gs} (images, L chunks) x "
+          f"{ts} threads; attend grid {ga} (images, D slices, row chunks) x {ta} threads, "
+          f"smem {da} B dynamic; cluster none (scores written once per row, each "
+          "attend block takes its rows' softmax)", flush=True)
 
 
 def check_loop(label, la, bf16=False):
@@ -1937,13 +2010,15 @@ def bf16_encoder_card_vs_cpu(arch, dev, px, w_seed, img_seed, tag):
 
 def decode_kernel_checks(model, imgs, rows, tag, loop=True):
     """Both decode kernels of ``model`` against their plain versions on its
-    annotations of ``imgs``: the step at each of ``rows`` rows and, where
-    ``loop``, the loop at B rows, f32 and bf16, with the launch plans
-    printed and each tiled product filling 64 blocks.  Returns {"L", "D",
-    "plans", "args": the step's arguments by rows (f"{n}_bf16" for bf16),
-    "step_err": likewise, and with ``loop`` "la": the loop's f32 arguments,
-    "loop": (agreement, max error, outputs), "loop_bf16": (agreement, max
-    error)}."""
+    annotations of ``imgs``: the step at each of ``rows`` rows, and on
+    grouped rows (``check_grouped``: B_BEAM rows k = K_BEAM to an image, as
+    the beam path, and where ``loop`` 320 rows k = 20 to an image, as
+    ``search``'s beamk 20) and, where ``loop``, the loop at B rows, f32 and bf16, with the
+    launch plans printed and each tiled product filling 64 blocks.  Returns
+    {"L", "D", "plans", "args": the step's arguments by rows (f"{n}_bf16"
+    for bf16; f"{n}_k{k}" grouped), "step_err": likewise, and with ``loop``
+    "la": the loop's f32 arguments, "loop": (agreement, max error,
+    outputs), "loop_bf16": (agreement, max error)}."""
     import torch
     from sat_tpu_torch.kernels import decoder_step as KS
     from sat_tpu_torch.kernels import greedy_loop as KL
@@ -1952,7 +2027,9 @@ def decode_kernel_checks(model, imgs, rows, tag, loop=True):
     an_all = model.encode(imgs)
     L, D = an_all.shape[1:]
     H, E, A, V = vcfg.decoder_dim, vcfg.embed_dim, vcfg.attention_dim, vcfg.vocab_size
-    plans = {"decoder step kernels": KS.step_plan(max(rows), L, D, A, H, E)}
+    plans = {"decoder step kernels": KS.step_plan(max(rows), L, D, A, H, E),
+             f"decoder step kernels grouped (k={K_BEAM})":
+                 KS.step_plan(B_BEAM, L, D, A, H, E, k=K_BEAM)}
     if loop:
         plans["greedy loop phases"] = KL.loop_plan(B, L, D, A, H, E, V)
     for what, plan in plans.items():
@@ -1977,6 +2054,16 @@ def decode_kernel_checks(model, imgs, rows, tag, loop=True):
         errs[n] = check_step(f"{tag} L={L} D={D} N={n} f32", args[n])[1]
         errs[f"{n}_bf16"] = check_step(f"{tag} L={L} D={D} N={n} bf16", args[f"{n}_bf16"],
                                        rel=1e-2)[1]
+    attend_design(f"{tag} L={L} D={D}", plans[f"decoder step kernels grouped (k={K_BEAM})"],
+                  B_BEAM, K_BEAM)
+    ae_all = TD.attention_precompute(params, an_all)
+    # search's beamk 20 only at each phase's own widths (``loop``)
+    for k, n in ((K_BEAM, B_BEAM),) + (((GROUP_K, GROUP_N),) if loop else ()):
+        for label, dt, rel in (("", None, 1e-4), ("_bf16", torch.bfloat16, 1e-2)):
+            key = f"{n}_k{k}{label}"
+            args[key] = grouped_args(params, vcfg, an_all, ae_all, k, n, seed=16 + k, dtype=dt)
+            errs[key] = check_grouped(f"{tag} L={L} D={D} N={n} {label[1:] or 'f32'}",
+                                      args[key], k, rel)[1]
     out = {"L": L, "D": D, "plans": plans, "args": args, "step_err": errs}
     if loop:
         _, _, e, h0, c0, an, ae = args[B]
@@ -2232,7 +2319,7 @@ def main_path_and_times(model, imgs, kc, train, card, tag, extra=None):
           f"{tag}: the main path ran the loop kernel once and the step kernels per step")
     check(res.tokens.shape == (B, 1, S + 2) and len(caps) == B, f"{tag}: result shapes")
 
-    la, a192 = kc["la"], kc["args"][B_BEAM]
+    la, a192 = kc["la"], kc["args"][f"{B_BEAM}_k{K_BEAM}"]
     times = {
         "encode": timed(lambda: model.encode(imgs)),
         "decoder_step_192": timed(lambda: KS.fused_decoder_step(*a192),
@@ -2253,6 +2340,8 @@ def main_path_and_times(model, imgs, kc, train, card, tag, extra=None):
         rate = f" per batch of {B}, {B / t['ms'] * 1e3:.0f} imgs/s" if "captioning" in k \
             or k == "encode" else ""
         parts = t.get("busy_parts_ms")
+        if parts and "attend" in parts:
+            attend_total(parts)
         tail = "" if not parts else "; busy by kernel: " + ", ".join(
             f"{p} {'not measured' if v is None else f'{v * 1e3:.1f} us'}"
             for p, v in parts.items())
@@ -2285,8 +2374,8 @@ def main_path_and_times(model, imgs, kc, train, card, tag, extra=None):
         {"name": f"decoder_step_L{L}_D{D}", "route": "cuda",
          "source": "sat_tpu_torch/csrc/decoder_step.cu",
          "replaces": "sat_tpu/kernels/decoder_step.py:72",
-         "launches": launches["decoder_step"], "rows": B_BEAM,
-         "max_abs_err": max(kc["step_err"][B_BEAM].values()),
+         "launches": launches["decoder_step"], "rows": B_BEAM, "images": B,
+         "max_abs_err": max(kc["step_err"][f"{B_BEAM}_k{K_BEAM}"].values()),
          "ms": times["decoder_step_192"]["ms"],
          "plain_ms": times["decoder_step_192_plain"]["ms"],
          "bound_ms": step_bound, "bound_by": step_by, "library_ms": None},
@@ -3397,6 +3486,8 @@ def main():
         for k in ("hside", "gates", "deepout"):
             check(plan[k][0][0] * plan[k][0][1] * plan[k][0][2] >= 64,
                   f"{what}: {k} fills 64 blocks")
+    report["step_plan_grouped"] = KS.step_plan(B_BEAM, L, D, A, H, E, k=K_BEAM)
+    attend_design("n64", report["step_plan_grouped"], B_BEAM, K_BEAM)
     ids = torch.from_numpy(np.random.default_rng(1).integers(
         1, cfg.vocab_size, size=B)).to(dev)
     e = TD.embed_tokens(params, ids, cfg).contiguous()
@@ -3429,11 +3520,18 @@ def main():
         hh, cc = hh[0].contiguous(), cc[0].contiguous()
         ee = TD.embed_tokens(m.decoder, torch.full((n,), 3, device=dev), m.cfg)
         args = (KS.step_weights(m.decoder, m.cfg), m.cfg, ee, hh, cc, an, ae)
-        got_n, err_n = check_step(label, args)
-        if n == B_BEAM and m is model:
-            beam_step_args, beam_step_out, beam_step_err = args, got_n, err_n
+        check_step(label, args)
         check_loop(label, (*KL.loop_weights(m.decoder, m.cfg, torch.float32), m.cfg,
                            an, ae, hh, cc))
+    # grouped rows, as beam search calls the step: B_BEAM rows over the B
+    # images, k = K_BEAM (the beam path's call, timed in phase 7), and
+    # search's beamk 20
+    for k, n in ((K_BEAM, B_BEAM), (GROUP_K, GROUP_N)):
+        for label, dt, rel in (("f32", None, 1e-4), ("bf16", torch.bfloat16, 1e-2)):
+            g_args = grouped_args(params, cfg, annots, att_enc, k, n, seed=16 + k, dtype=dt)
+            got_n, err_n = check_grouped(f"n64 N={n} {label}", g_args, k, rel)
+            if (k, label) == (K_BEAM, "f32"):
+                beam_step_args, beam_step_out, beam_step_err = g_args, got_n, err_n
 
     # -- 4. greedy path -------------------------------------------------------------
     stamps["greedy"] = time.perf_counter()
@@ -3584,12 +3682,17 @@ def main():
                   for label in ("", "_bf16") for ph in KL.PHASES}
     step_busy = {f"{k}{label}": busy_of(dev_times["decoder_step" + label], "decoder_step_" + k)
                  for label in ("", "_bf16", "_192") for k in KS.KERNELS}
-    print(f"[time] step kernels (B={B}; _192: B={B_BEAM}), busy device time per call, "
+    for label in ("", "_bf16", "_192"):
+        attend_total(step_busy, label)
+    for label in ("", "_bf16"):
+        attend_total(phase_busy, label)
+    print(f"[time] step kernels (B={B}; _192: N={B_BEAM} over {B} images), busy device "
+          "time per call, "
           "torch.profiler: "
           + ", ".join(f"{k} {'not measured' if v is None else f'{v * 1e3:.1f} us'}"
                       for k, v in step_busy.items()), flush=True)
     step_host = {k: host_ms(calls[k][0]) for k in ("decoder_step", "decoder_step_bf16")}
-    print("[time] step wrapper, host time per call (checks, 9 allocations, 6 "
+    print("[time] step wrapper, host time per call (checks, 10 allocations, 7 "
           "launches): " + ", ".join(f"{k} {v:.3f} ms" for k, v in step_host.items()),
           flush=True)
     batch_steps = int(torch.where(kl[4], kl[3] + 1, S + 1).max())

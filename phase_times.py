@@ -13,8 +13,16 @@ decode (ms, the phases TREE's ``PHASES`` names, their ``total``, and the
 decode's CUDA-event ms, ``events``) and,
 where TREE has the phased step kernels, each step kernel's busy time per
 call at V 97 (us), both from torch.profiler (``chip_smoke.device_ms``), then
-each kernel instance's registers.  Last, at n64's widths and 4,096 and
-60,000 synthetic words, it times the two greedy routes of
+each kernel instance's registers.  At L 196, D 2048 (resnet50 at
+encoder_size 14; seeded uniform annotations of 64 images, a decoder drawn
+from seed 0 at 4,096 words) it gives the loop's phases likewise (keys ending
+``_l196``).  Beam search through the step kernels (``beam_search(...,
+fused=True)``, beamk 3, LN, S 20, B 64, f32), at n64 and at L 196, D 2048,
+gives its busy ms and CUDA-event ms per decode, each step kernel's busy
+ms per decode, and a hash of its tokens and raw scores, equal where two
+trees decode bit for bit alike (keys ``beam_*``): the API both trees
+share, whatever ``fused_decoder_step`` takes.  Last, at n64's widths and
+4,096 and 60,000 synthetic words, it times the two greedy routes of
 ``decode.beam.greedy_decode`` end to end, the loop kernels
 (``fused="loop"``) and the step kernels with the vocabulary matmul
 (``fused=True``): every kernel's busy ms and the CUDA-event ms per decode
@@ -25,6 +33,7 @@ in turns (parent, change, change, parent) within one call to compare
 their phases on one card.
 """
 
+import hashlib
 import json
 import os
 import sys
@@ -83,6 +92,35 @@ def main():
                                                              calls=20))
             out[f"step_total_{name}_us"] = us(CS.device_ms(step, "decoder_step_", calls=20))
     from sat_tpu_torch.decode import beam as TB
+    # the loop at L 196, D 2048, V 4096, and beam search through the step
+    # kernels there and at n64
+    big_cfg = CS.vocab_config(4096, "resnet50", 224, 14, 2048)
+    big = TD.init_decoder_params(torch.Generator(device="cuda").manual_seed(0), big_cfg)
+    big_an = torch.rand(64, 196, 2048, generator=torch.Generator().manual_seed(19)).cuda()
+    ae = TD.attention_precompute(big, big_an)
+    h, c = TD.init_lstm_state(big, big_an, big_cfg)
+    args = (*KL.loop_weights(big, big_cfg, torch.float32), big_cfg, big_an, ae,
+            h[0].contiguous(), c[0].contiguous())
+    loop = lambda: KL.greedy_loop(*args, max_gen_length=20)
+    times = CS.device_times(loop, calls=20)
+    for ph in KL.PHASES:
+        out[f"{ph}_float32_l196"] = CS.busy_of(times, "greedy_loop_" + ph)
+    out["total_float32_l196"] = CS.busy_of(times, "greedy_loop_")
+    out["events_float32_l196"] = CS.cuda_ms(loop)
+    n64_an = model.to(torch.float32).encode(imgs)
+    for suffix, params, pcfg, an in (("n64", model.decoder, cfg, n64_an),
+                                     ("l196", big, big_cfg, big_an)):
+        run = lambda: TB.beam_search(params, pcfg, an, beamk=3, max_gen_length=20,
+                                     rescore_method="LN", fused=True)
+        res = run()
+        out[f"beam_sha_{suffix}"] = hashlib.sha256(
+            res.tokens.cpu().numpy().tobytes() + res.raw_scores.cpu().numpy().tobytes()
+        ).hexdigest()[:16]
+        times = CS.device_times(run, calls=3)
+        out[f"beam_busy_{suffix}"] = CS.busy_of(times)
+        out[f"beam_events_{suffix}"] = CS.cuda_ms(run, reps=5)
+        for k in KS.KERNELS:
+            out[f"beam_step_{k}_{suffix}"] = CS.busy_of(times, "decoder_step_" + k)
     for v in (4096, 60000):
         vcfg = CS.vocab_config(v, cfg.encoder_arch, cfg.input_size, cfg.encoder_size,
                                cfg.encoder_dim)

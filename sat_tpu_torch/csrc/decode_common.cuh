@@ -15,8 +15,6 @@ constexpr int NT = 256;  // threads per block
 constexpr int NWARPS = NT / 32;
 constexpr unsigned FULL = 0xffffffffu;
 
-__host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
-
 __device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
 

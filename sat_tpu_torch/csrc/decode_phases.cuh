@@ -1,9 +1,12 @@
-// One decode step for a whole batch as four phases, the device code shared
-// by the greedy loop (greedy_loop.cu) and the fused step (decoder_step.cu).
-// Each source launches the phases through __global__ wrappers of its own, in
-// order on one stream; the kernel boundaries are the grid-wide barriers:
+// One decode step for a whole batch as four phases in five kernels, the
+// device code shared by the greedy loop (greedy_loop.cu) and the fused step
+// (decoder_step.cu).  Each source launches them through __global__ wrappers
+// of its own, in order on one stream; the kernel boundaries are the
+// grid-wide barriers:
 //   1. hside    g1 = h [Wd | Wb | Whh]                       (K = H)
-//   2. attend   scores, softmax, z, beta z, z (one row, a D slice)
+//   2. scores   the attention scores of each row over L (one image's rows,
+//               a chunk of L)
+//      attend   softmax, z, beta z, z (one image's rows, a D slice)
 //   3. gates    [e | beta z] [Wie; Wiz] + g_h + bias, LSTM cell
 //   4. deepout  partial sums of [h' | z] [Wh; Wc], split over K
 // The caller sums phase 4's K slices in slice order and applies the deep
@@ -27,8 +30,21 @@
 // fixed order by the caller, so a run is deterministic.  The column layouts
 // of the packed weights (gate columns interleaved as 4u + q) are fixed by
 // kernels/decoder_step.py::pack_loop_weights.  Values are rounded to T where
-// step_math rounds them (h', beta z, z for Wc).  The bodies read no state of
-// the loop (finished rows, the count of them): the loop's wrappers return
+// step_math rounds them (h', beta z, z for Wc).
+//
+// Phase 2 reads the annotations, (B / k, L, D) for B rows, k rows to an
+// image (a beam's slots; 1 in the loop): 103 MB a step at L 196, D 2048,
+// B / k = 64 in f32, 31 us of the H100's 3.35 TB/s, the one large input of
+// the step.  Each image's annotations are streamed from device memory once
+// per step for all its rows, staged in shared memory by cp.async, and each
+// score (an A-wide sum of tanh terms, 4.8 M of them at N = 192, L 196) is
+// computed once per row by its own kernel, so the attend blocks, one per
+// image and D slice, do no redundant scoring and start their copies at once.
+// Slices of 128 columns, one to a thread, and two stages of 26 positions
+// were the fastest shape an H100 measured (PERF.md): 256-column slices, four
+// columns a thread, three stages of 17 positions, two of 34 and TMA bulk
+// copies were no faster.  The bodies read no state
+// of the loop (finished rows, the count of them): the loop's wrappers return
 // before calling them where that state says so.
 #pragma once
 
@@ -38,7 +54,16 @@ namespace sat {
 
 constexpr int BM = 64;          // rows per tile
 constexpr int BK = 128;         // K rows per shared-memory stage
-constexpr int ATT_SLICE = 256;  // D columns (and threads) per attend block
+constexpr int ATT_SLICE = 128;  // D columns (and threads) per attend block
+constexpr int ATT_ST = 2;       // attend: annotation chunks staged at once
+constexpr int ATT_RQ = 4;       // attend: rows summed per pass over a chunk
+constexpr int ATT_KC = 32;      // attend: most rows of one image per block
+// attend: L positions per chunk, 26 in f32: L 49 in two chunks, and eight
+// blocks of a beam's three rows on an SM
+template <typename T> constexpr int ATT_LC = 104 / (int)sizeof(T);
+constexpr int SC_RB = 4;        // scores: rows per pass over A
+constexpr int SC_J = 4;         // scores: terms a lane loads before evaluating them
+constexpr int SC_L = NWARPS;    // scores: L positions per block, one to a warp
 constexpr int P1_BN = 32, P1_KG = 2;  // hside: columns per block, K groups
 constexpr int P3_BN = 16, P3_KG = 4;  // gates: 4 hidden units x 4 gates
 constexpr int P4_BN = 32, P4_KG = 2;  // deepout
@@ -206,9 +231,10 @@ __device__ __forceinline__ void tile_store(const Tiles<T, BN, KG>& s, float* out
   }
 }
 
-// -- the four phases ---------------------------------------------------------------
-// Grids: hside (N1 / P1_BN, row tiles), attend (B, D / ATT_SLICE), gates
-// (G / P3_BN, row tiles), deepout (Ep / P4_BN, row tiles, splits); see plan4.
+// -- the phases ---------------------------------------------------------------------
+// Grids: hside (N1 / P1_BN, row tiles), scores (images, L / SC_L), attend
+// (images, D / ATT_SLICE, row chunks), gates (G / P3_BN, row tiles), deepout
+// (Ep / P4_BN, row tiles, splits); see plan5.
 
 // 1. g1 = h [Wd | Wb | Whh]: att_dec, x_beta and the recurrent gate sums.
 template <typename T, typename Args>
@@ -219,53 +245,257 @@ __device__ __forceinline__ void hside_body(const Args a) {
   tile_store(s, a.g1, a.B, a.N1, m0, n0);
 }
 
-// 2. One row and one slice of D: attention scores over L (recomputed by every
-// slice), softmax, z = sum_l alpha_l annot_l, beta z and z rounded to T.
-// z_out, where given, receives the row's z in T (row-major, D wide).
-// Returns the row's L attention weights in shared memory, for the caller to
-// write out: with that write inside the body, the loop's bf16 attend kernel
-// ran about 17 % slower on an H100 (PERF.md).
+// 2. attend, as two kernels.  Rows are grouped by image: the B rows are
+// image-major and slot-minor, k to an image (the beam's slots; k = 1 in the
+// loop), and row r reads image r / k of annot (B / k, L, D) and att_enc
+// (B / k, L, A).  The order of every sum over a row is fixed and does not
+// depend on k, so a grouped call equals the same call on k-fold copies of
+// each image bit for bit.
+//
+// 2a. scores: sc[r][l] = (sum_j tanh(att_enc[i][l][j] + att_dec[r][j]) wf[j])
+// / sqrt(L) for the k rows r of image i = blockIdx.x, at the SC_L positions
+// l of blockIdx.y, one to a warp; each score once per row and step.  Lane j
+// sums terms j, j + 32, ... in order, then the lanes in a fixed butterfly.
+// A warp loads SC_J terms' operands a lane (att_enc, wf and SC_RB rows'
+// att_dec) before it evaluates them, so their loads are in flight at once,
+// and each att_enc element is loaded once for the SC_RB rows of a pass.
 template <typename T, typename Args>
-__device__ __forceinline__ const float* attend_body(const Args a, int row, T* z_out) {
-  extern __shared__ float4 smem_raw[];
-  float* alpha = reinterpret_cast<float*>(smem_raw);  // L
-  constexpr int NW = ATT_SLICE / 32;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int L = a.L, A = a.A, D = a.D;
-  const float* g1 = a.g1 + (size_t)row * a.N1;  // att_dec = g1[0:A], x_beta = g1[A:A+D]
-  for (int l = warp; l < L; l += NW) {
-    const T* ae = a.att_enc + ((size_t)row * L + l) * A;
-    float acc = 0.f;
-    for (int j = lane; j < A; j += 32) acc += tanhf(ldf(ae + j) + g1[j]) * a.wf[j];
-    acc = warp_sum(acc);
-    if (lane == 0) alpha[l] = acc * a.inv_sqrt_l;
+__device__ __forceinline__ void scores_body(const Args a, int k, float* sc) {
+  const int lane = threadIdx.x & 31;
+  const int img = blockIdx.x, L = a.L, A = a.A;
+  const int l = blockIdx.y * SC_L + (threadIdx.x >> 5);
+  if (l >= L) return;
+  const T* ae = a.att_enc + ((size_t)img * L + l) * A;
+  for (int q0 = 0; q0 < k; q0 += SC_RB) {
+    const int row0 = img * k + q0, nq = min(SC_RB, k - q0);
+    float acc[SC_RB];
+#pragma unroll
+    for (int q = 0; q < SC_RB; ++q) acc[q] = 0.f;
+    for (int j0 = lane; j0 < A; j0 += 32 * SC_J) {
+      float x[SC_J], w[SC_J], g[SC_RB][SC_J];
+#pragma unroll
+      for (int u = 0; u < SC_J; ++u) {
+        const int j = j0 + 32 * u;
+        const bool ok = j < A;
+        x[u] = ok ? ldf(ae + j) : 0.f;
+        w[u] = ok ? a.wf[j] : 0.f;
+#pragma unroll
+        for (int q = 0; q < SC_RB; ++q)
+          g[q][u] = ok && q < nq ? a.g1[(size_t)(row0 + q) * a.N1 + j] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < SC_J; ++u)
+        if (j0 + 32 * u < A) {
+#pragma unroll
+          for (int q = 0; q < SC_RB; ++q)
+            if (q < nq) acc[q] += tanhf(x[u] + g[q][u]) * w[u];
+        }
+    }
+#pragma unroll
+    for (int q = 0; q < SC_RB; ++q)
+      if (q < nq) {
+        const float v = warp_sum(acc[q]);
+        if (lane == 0) sc[(size_t)(row0 + q) * L + l] = v * a.inv_sqrt_l;
+      }
   }
-  __syncthreads();
-  if (warp == 0) {
+}
+
+template <typename S> __device__ __forceinline__ float stored_f(S x);
+template <> __device__ __forceinline__ float stored_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ float stored_f<unsigned short>(unsigned short x) {
+  return bf16_lo(x);
+}
+
+// One pass over a staged chunk for R rows: z[q] += alpha[q][l] x[l] over the
+// chunk's nl positions in order.
+template <int R, typename S>
+__device__ __forceinline__ void attend_pass(float (&z)[ATT_RQ], const S* x, const float* al,
+                                            int lc, int nl) {
+#pragma unroll 4
+  for (int l = 0; l < nl; ++l) {
+    const float v = stored_f(x[l * ATT_SLICE]);
+#pragma unroll
+    for (int q = 0; q < R; ++q) z[q] = fmaf(al[q * lc + l], v, z[q]);
+  }
+}
+
+template <typename S>
+__device__ __forceinline__ void attend_pass(float (&z)[ATT_RQ], int n, const S* x,
+                                            const float* al, int lc, int nl) {
+  switch (n) {
+    case 1: attend_pass<1>(z, x, al, lc, nl); break;
+    case 2: attend_pass<2>(z, x, al, lc, nl); break;
+    case 3: attend_pass<3>(z, x, al, lc, nl); break;
+    default: attend_pass<ATT_RQ>(z, x, al, lc, nl); break;
+  }
+}
+
+// 2b. attend: for up to ATT_KC rows of image i = blockIdx.x (the row chunk
+// blockIdx.z) and the D slice blockIdx.y, the softmax of the rows' scores,
+// z = sum_l alpha_l annot_l, beta z and z rounded to T.  The block streams
+// its slice of the image's annotations once, in chunks of ATT_LC positions
+// staged in shared memory by cp.async (ATT_ST chunks in flight, all of them
+// from the start at L <= ATT_ST ATT_LC) together with its rows' scores there,
+// and every thread adds its column of a chunk into the sums of all the
+// block's rows, ATT_RQ rows per pass.  Each block takes the softmax of its
+// rows itself (a row's max and sum of exponentials over L in a fixed
+// order), so no block waits on another; the slice-0 blocks write alpha to
+// aout (row r at aout + r astride).  z_out, where given, receives z in T
+// (row-major, D wide).
+template <typename T> struct AttendTile {
+  static constexpr int LC = ATT_LC<T>;
+  typename Store<T>::type x[ATT_ST][LC][ATT_SLICE];
+};
+
+__host__ __device__ inline int attend_rows(int k) { return k < ATT_KC ? k : ATT_KC; }
+
+// Dynamic shared memory of an attend block of kb rows: the annotation
+// stages, then in float the rows' sums zs[kb][ATT_SLICE] (only for kb >
+// ATT_RQ: up to ATT_RQ rows' sums stay in registers, leaving room for more
+// blocks on an SM), the score stages ss[ATT_ST][kb][LC], a chunk's
+// weights al[kb][LC], each row's max and sum.
+__host__ __device__ inline int attend_sums(int kb) { return kb > ATT_RQ ? kb * ATT_SLICE : 0; }
+template <typename T> __host__ __device__ inline int attend_smem(int kb) {
+  return (int)sizeof(AttendTile<T>) +
+         4 * (attend_sums(kb) + kb * ((ATT_ST + 1) * ATT_LC<T> + 2));
+}
+
+__device__ __forceinline__ unsigned short raw_ld(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const unsigned short*>(p));
+}
+__device__ __forceinline__ float raw_ld(const float* p) { return __ldg(p); }
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+template <typename T, typename Args>
+__device__ __forceinline__ void attend_body(const Args a, int k, const float* sc, float* aout,
+                                            size_t astride, T* z_out) {
+  constexpr int LC = ATT_LC<T>;
+  extern __shared__ float4 smem_raw[];
+  auto& tile = *reinterpret_cast<AttendTile<T>*>(smem_raw);
+  const int kb = attend_rows(k);
+  float* zs = reinterpret_cast<float*>(smem_raw) + sizeof(AttendTile<T>) / 4;
+  float* ss = zs + attend_sums(kb);   // [ATT_ST][kb][LC]
+  float* al = ss + ATT_ST * kb * LC;
+  float* mx = al + kb * LC;
+  float* sm = mx + kb;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int L = a.L, D = a.D, img = blockIdx.x;
+  const int q0 = blockIdx.z * kb, nr = min(kb, k - q0), row0 = img * k + q0;
+  const int d0 = blockIdx.y * ATT_SLICE, d = d0 + tid;
+  const T* an = a.annot + (size_t)img * L * D;
+  const float* sr = sc + (size_t)row0 * L;  // the block's rows' scores
+  const int nch = (L + LC - 1) / LC;
+  // 16-byte copies where every row of the slice starts on 16 bytes
+  const bool vec = reinterpret_cast<uintptr_t>(a.annot) % 16 == 0 &&
+                   ((size_t)D * sizeof(T)) % 16 == 0;
+  auto load = [&](int c) {
+    const int st = c % ATT_ST, lb = c * LC;
+    if (vec) {
+      constexpr int VE = 16 / (int)sizeof(T), CPR = ATT_SLICE / VE;
+#pragma unroll 1
+      for (int i = tid; i < LC * CPR; i += ATT_SLICE) {
+        const int lr = i / CPR, dc = (i % CPR) * VE, l = lb + lr;
+        const bool ok = l < L && d0 + dc < D;
+        cp_async16(&tile.x[st][lr][dc], ok ? an + (size_t)l * D + d0 + dc : an, ok);
+      }
+    } else {
+#pragma unroll 1
+      for (int lr = 0; lr < LC; ++lr) {
+        const int l = lb + lr;
+        tile.x[st][lr][tid] = l < L && d < D ? raw_ld(an + (size_t)l * D + d)
+                                             : typename Store<T>::type(0);
+      }
+    }
+#pragma unroll 1
+    for (int i = tid; i < nr * LC; i += ATT_SLICE) {
+      const int q = i / LC, l = lb + i % LC;
+      cp_async4(&ss[(st * kb + q) * LC + i % LC], l < L ? sr + (size_t)q * L + l : sr,
+                l < L);
+    }
+    cp_async_commit();
+  };
+  // the first chunks' copies, and the loads of the epilogue's first rows,
+  // run while the rows' max and sum are taken
+#pragma unroll
+  for (int c = 0; c < ATT_ST; ++c) {
+    if (c < nch) load(c);
+    else cp_async_commit();
+  }
+  const float bb = d < D ? a.bb[d] : 0.f;
+  float xb[ATT_RQ];
+#pragma unroll
+  for (int q = 0; q < ATT_RQ; ++q)
+    xb[q] = q < nr && d < D ? a.g1[(size_t)(row0 + q) * a.N1 + a.A + d] : 0.f;
+  for (int q = warp; q < nr; q += ATT_SLICE / 32) {
+    const float* s = sr + (size_t)q * L;
     float m = -INFINITY;
-    for (int l = lane; l < L; l += 32) m = fmaxf(m, alpha[l]);
+    for (int l = lane; l < L; l += 32) m = fmaxf(m, s[l]);
     m = warp_max(m);
     float sum = 0.f;
-    for (int l = lane; l < L; l += 32) {
-      const float ev = expf(alpha[l] - m);
-      alpha[l] = ev;
-      sum += ev;
-    }
+    for (int l = lane; l < L; l += 32) sum += expf(s[l] - m);
     sum = warp_sum(sum);
-    for (int l = lane; l < L; l += 32) alpha[l] = alpha[l] / sum;
+    if (lane == 0) {
+      mx[q] = m;
+      sm[q] = sum;
+    }
   }
-  __syncthreads();
-  const int d = blockIdx.y * ATT_SLICE + tid;
-  if (d < D) {
-    const T* an = a.annot + (size_t)row * L * D + d;
-    float z = 0.f;
-    for (int l = 0; l < L; ++l) z = fmaf(alpha[l], ldf(an + (size_t)l * D), z);
-    const float beta = sigmoidf(g1[A + d] + a.bb[d]);
+  const bool in_regs = kb <= ATT_RQ;
+  float zr[ATT_RQ];  // the rows' sums where in_regs
+#pragma unroll
+  for (int q = 0; q < ATT_RQ; ++q) zr[q] = 0.f;
+  if (!in_regs)
+    for (int q = 0; q < nr; ++q) zs[q * ATT_SLICE + tid] = 0.f;
+  for (int c = 0; c < nch; ++c) {
+    const int st = c % ATT_ST, lb = c * LC, nl = min(LC, L - lb);
+    cp_async_wait<ATT_ST - 1>();
+    __syncthreads();  // chunk c's copies, and (c = 0) the rows' max and sum
+    for (int i = tid; i < nr * LC; i += ATT_SLICE) {
+      const int q = i / LC, lr = i % LC;
+      if (lr >= nl) continue;
+      const float v = expf(ss[(st * kb + q) * LC + lr] - mx[q]) / sm[q];
+      al[q * LC + lr] = v;
+      if (blockIdx.y == 0) aout[(size_t)(row0 + q) * astride + lb + lr] = v;
+    }
+    __syncthreads();
+    const auto* x = &tile.x[st][0][tid];
+    if (in_regs) {
+      attend_pass(zr, nr, x, al, LC, nl);
+    } else {
+      for (int g = 0; g < nr; g += ATT_RQ) {
+        const int n = min(ATT_RQ, nr - g);
+        float* zg = zs + g * ATT_SLICE + tid;
+        float z[ATT_RQ];
+#pragma unroll
+        for (int q = 0; q < ATT_RQ; ++q) z[q] = q < n ? zg[q * ATT_SLICE] : 0.f;
+        attend_pass(z, n, x, al + g * LC, LC, nl);
+#pragma unroll
+        for (int q = 0; q < ATT_RQ; ++q)
+          if (q < n) zg[q * ATT_SLICE] = z[q];
+      }
+    }
+    __syncthreads();  // chunk c + ATT_ST's copies and weights overwrite these
+    if (c + ATT_ST < nch) load(c + ATT_ST);
+    else cp_async_commit();
+  }
+  if (d >= D) return;
+  auto store = [&](int q, float z, float xbeta) {
+    const int row = row0 + q;
+    const float beta = sigmoidf(xbeta + bb);
     a.xt[(size_t)(a.E + d) * a.Bp + row] = from_f<T>(beta * z);
     a.yt[(size_t)(a.H + d) * a.Bp + row] = from_f<T>(z);
-    if (z_out) z_out[d] = from_f<T>(z);
-  }
-  return alpha;
+    if (z_out) z_out[(size_t)row * D + d] = from_f<T>(z);
+  };
+#pragma unroll
+  for (int q = 0; q < ATT_RQ; ++q)
+    if (q < nr) store(q, in_regs ? zr[q] : zs[q * ATT_SLICE + tid], xb[q]);
+  for (int q = ATT_RQ; q < nr; ++q)
+    store(q, zs[q * ATT_SLICE + tid], a.g1[(size_t)(row0 + q) * a.N1 + a.A + d]);
 }
 
 // 3. gates = [e | beta z] [Wie; Wiz] + g_h + bias, and the LSTM cell: the
@@ -310,17 +540,20 @@ __device__ __forceinline__ void deepout_body(const Args a) {
 
 // -- host side ---------------------------------------------------------------------
 
-// The four phases' grid (x, y, z), threads, dynamic and static shared memory
-// bytes, in launch order, for B rows.
+// The five phase kernels' grid (x, y, z), threads, dynamic and static shared
+// memory bytes, in launch order (hside, scores, attend, gates, deepout), for
+// B rows, k to an image.
 template <typename T>
-void plan4(int B, int L, int D, int N1, int G, int Ep, int splits, int (&p)[4][6]) {
-  const int rt = (B + BM - 1) / BM;
-  const int rows[4][6] = {
+void plan5(int B, int k, int L, int D, int N1, int G, int Ep, int splits, int (&p)[5][6]) {
+  const int rt = (B + BM - 1) / BM, imgs = B / k, kb = attend_rows(k);
+  const int rows[5][6] = {
       {(N1 + P1_BN - 1) / P1_BN, rt, 1, NT, (int)sizeof(Tiles<T, P1_BN, P1_KG>), 0},
-      {B, (D + ATT_SLICE - 1) / ATT_SLICE, 1, ATT_SLICE, (int)sizeof(float) * pad4(L), 0},
+      {imgs, (L + SC_L - 1) / SC_L, 1, NT, 0, 0},
+      {imgs, (D + ATT_SLICE - 1) / ATT_SLICE, (k + kb - 1) / kb, ATT_SLICE,
+       attend_smem<T>(kb), 0},
       {(G + P3_BN - 1) / P3_BN, rt, 1, NT, (int)sizeof(Tiles<T, P3_BN, P3_KG>), 0},
       {(Ep + P4_BN - 1) / P4_BN, rt, splits, NT, (int)sizeof(Tiles<T, P4_BN, P4_KG>), 0}};
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 5; ++i)
     for (int j = 0; j < 6; ++j) p[i][j] = rows[i][j];
 }
 

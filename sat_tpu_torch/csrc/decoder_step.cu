@@ -7,26 +7,31 @@
 //   t = tanh(e + h' Wh + z Wc), or h' Wh without deep output
 //
 // Outputs t, h', c', z in the input type and alpha (N, L) in float.  c is
-// read in the input type and c' rounded to it, as the JAX kernel does.
+// read in the input type and c' rounded to it, as the JAX kernel does.  The
+// N rows may share images k to one (a beam's slots): row r attends over
+// image r / k of annotations (N / k, L, D) and att_enc (N / k, L, A); k = 1
+// is one image per row.
 //
 // Design.  The step is the four batch-wide phases of decode_phases.cuh (whose
 // comment gives what bounds them and how), between a prologue and an
-// epilogue, six kernels launched in order on the caller's stream by
+// epilogue, seven kernels launched in order on the caller's stream by
 // sat_decoder_step:
 //   decoder_step_in       e, h -> the feature-major xt, yt; zero padding columns
 //   decoder_step_hside    phase 1
-//   decoder_step_attend   phase 2; alpha and z row-major
+//   decoder_step_scores   phase 2, the scores
+//   decoder_step_attend   phase 2, the rest; alpha and z row-major
 //   decoder_step_gates    phase 3; c' and h' row-major
 //   decoder_step_deepout  phase 4
 //   decoder_step_out      t: phase 4's K slices summed in slice order, tanh(e + .)
-// Each weight is read once per step per tile of 64 rows, not once per row.
+// Each weight is read once per step per tile of 64 rows, not once per row,
+// and each image's annotations once per step, not once per row.
 #include "decode_phases.cuh"
 
 namespace sat {
 
 template <typename T> struct StepArgs {
-  const T* annot;    // (B, L, D)
-  const T* att_enc;  // (B, L, A)
+  const T* annot;    // (B / k, L, D)
+  const T* att_enc;  // (B / k, L, A)
   const T* w1;       // (H, N1)    [Wd | Wb | Whh (gates interleaved) | 0]
   const T* wx;       // (E + D, G) [Wie; Wiz], gates interleaved
   const T* wo;       // (H + D, Ep) [Wh; Wc]
@@ -36,12 +41,14 @@ template <typename T> struct StepArgs {
   T* yt;             // (H + D, Bp) [h; z], feature-major
   float* g1;         // (B, N1) phase-1 output
   float* part;       // (splits, B, Ep) phase-4 partial sums
+  float* sc;         // (B, L) attention scores
   T *t_out, *h_out, *c_out, *z_out;  // (B, E), (B, H), (B, H), (B, D)
   float* alpha_out;                  // (B, L)
   int B, Bp, L, D, A, H, E;
   int N1, G, Ep;        // padded widths of w1, wx, wo
   int K4, kc, splits;   // phase 4: K, K rows per split, splits
   int deep;
+  int k;                // rows per image
   float inv_sqrt_l;
 };
 
@@ -84,12 +91,13 @@ __global__ void __launch_bounds__(NT, 2) decoder_step_hside(StepArgs<T> a) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(ATT_SLICE) decoder_step_attend(StepArgs<T> a) {
-  const int row = blockIdx.x;
-  const float* alpha = attend_body<T>(a, row, a.z_out + (size_t)row * a.D);
-  if (blockIdx.y == 0)
-    for (int l = threadIdx.x; l < a.L; l += ATT_SLICE)
-      a.alpha_out[(size_t)row * a.L + l] = alpha[l];
+__global__ void __launch_bounds__(NT) decoder_step_scores(StepArgs<T> a) {
+  scores_body<T>(a, a.k, a.sc);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(ATT_SLICE, 8) decoder_step_attend(StepArgs<T> a) {
+  attend_body<T>(a, a.k, a.sc, a.alpha_out, a.L, a.z_out);
 }
 
 template <typename T>
@@ -117,44 +125,48 @@ __global__ void __launch_bounds__(NT) decoder_step_out(StepArgs<T> a) {
 
 // -- host side ---------------------------------------------------------------------
 
+constexpr int NKERNELS = 7;
+
 // Each kernel's grid (x, y, z), threads, dynamic and static shared memory
-// bytes, in launch order: in, hside, attend, gates, deepout, out.
+// bytes, in launch order: in, hside, scores, attend, gates, deepout, out.
 template <typename T>
-void plan(int B, int L, int D, int H, int E, int N1, int G, int Ep, int splits,
-          int (&p)[6][6]) {
-  int p4[4][6];
-  plan4<T>(B, L, D, N1, G, Ep, splits, p4);
+void plan(int B, int k, int L, int D, int H, int E, int N1, int G, int Ep, int splits,
+          int (&p)[NKERNELS][6]) {
+  int p5[5][6];
+  plan5<T>(B, k, L, D, N1, G, Ep, splits, p5);
   const int in[6] = {(E + H + TT - 1) / TT, (B + TT - 1) / TT, 1, NT, 0,
                      (int)sizeof(float) * TT * (TT + 1)};
   const int out[6] = {(B * E + NT - 1) / NT, 1, 1, NT, 0, 0};
   for (int j = 0; j < 6; ++j) {
     p[0][j] = in[j];
-    for (int i = 0; i < 4; ++i) p[i + 1][j] = p4[i][j];
-    p[5][j] = out[j];
+    for (int i = 0; i < 5; ++i) p[i + 1][j] = p5[i][j];
+    p[6][j] = out[j];
   }
 }
 
 template <typename T>
 cudaError_t run(const StepArgs<T>& a, cudaStream_t st) {
   static int allowed[4][MAX_DEVICES];  // per type: see allow_smem
-  int p[6][6];
-  plan<T>(a.B, a.L, a.D, a.H, a.E, a.N1, a.G, a.Ep, a.splits, p);
+  int p[NKERNELS][6];
+  plan<T>(a.B, a.k, a.L, a.D, a.H, a.E, a.N1, a.G, a.Ep, a.splits, p);
   cudaError_t err = allow_smem(decoder_step_hside<T>, p[1][4], allowed[0]);
-  if (err == cudaSuccess) err = allow_smem(decoder_step_attend<T>, p[2][4], allowed[1]);
-  if (err == cudaSuccess) err = allow_smem(decoder_step_gates<T>, p[3][4], allowed[2]);
-  if (err == cudaSuccess) err = allow_smem(decoder_step_deepout<T>, p[4][4], allowed[3]);
+  if (err == cudaSuccess) err = allow_smem(decoder_step_attend<T>, p[3][4], allowed[1]);
+  if (err == cudaSuccess) err = allow_smem(decoder_step_gates<T>, p[4][4], allowed[2]);
+  if (err == cudaSuccess) err = allow_smem(decoder_step_deepout<T>, p[5][4], allowed[3]);
   if (err != cudaSuccess) return err;
   decoder_step_in<T><<<grid(p[0]), p[0][3], p[0][4], st>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   decoder_step_hside<T><<<grid(p[1]), p[1][3], p[1][4], st>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  decoder_step_attend<T><<<grid(p[2]), p[2][3], p[2][4], st>>>(a);
+  decoder_step_scores<T><<<grid(p[2]), p[2][3], p[2][4], st>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  decoder_step_gates<T><<<grid(p[3]), p[3][3], p[3][4], st>>>(a);
+  decoder_step_attend<T><<<grid(p[3]), p[3][3], p[3][4], st>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  decoder_step_deepout<T><<<grid(p[4]), p[4][3], p[4][4], st>>>(a);
+  decoder_step_gates<T><<<grid(p[4]), p[4][3], p[4][4], st>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  decoder_step_out<T><<<grid(p[5]), p[5][3], p[5][4], st>>>(a);
+  decoder_step_deepout<T><<<grid(p[5]), p[5][3], p[5][4], st>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  decoder_step_out<T><<<grid(p[6]), p[6][3], p[6][4], st>>>(a);
   return cudaGetLastError();
 }
 
@@ -177,6 +189,7 @@ cudaError_t launch(const void* const* in, void* const* st, void* const* out, con
   a.yt = static_cast<T*>(st[1]);
   a.g1 = static_cast<float*>(st[2]);
   a.part = static_cast<float*>(st[3]);
+  a.sc = static_cast<float*>(st[4]);
   a.t_out = static_cast<T*>(out[0]);
   a.h_out = static_cast<T*>(out[1]);
   a.c_out = static_cast<T*>(out[2]);
@@ -185,30 +198,34 @@ cudaError_t launch(const void* const* in, void* const* st, void* const* out, con
   a.B = n[0]; a.Bp = n[1]; a.L = n[2]; a.D = n[3]; a.A = n[4]; a.H = n[5]; a.E = n[6];
   a.N1 = n[7]; a.G = n[8]; a.Ep = n[9]; a.K4 = n[10]; a.kc = n[11]; a.splits = n[12];
   a.deep = n[13];
+  a.k = n[14];
+  if (a.k <= 0 || a.B % a.k) return cudaErrorInvalidValue;
   a.inv_sqrt_l = (float)pow((double)a.L, -0.5);  // as Python's float(L) ** -0.5
   return run<T>(a, stream);
 }
 
 }  // namespace sat
 
-// dtype: 0 = float32, 1 = bfloat16.  Inputs: embed, h, c, annot, att_enc,
-// then the packed weights of kernels/decoder_step.py::LoopWeights (w1, wx,
-// wo, wf, bb, bias).  Scratch (written): xt (E+D, Bp), yt (H+D, Bp) in the
-// input type, g1 (B, N1) and part (splits, B, Ep) float32.  Outputs: t, h',
-// c', z, alpha.  Sizes B, Bp, L, D, A, H, E, N1, G, Ep, K4, kc, splits,
-// deep.  Launches 6 kernels on the stream and returns the first cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16.  Inputs: embed, h, c, annot (B / k,
+// L, D), att_enc (B / k, L, A), then the packed weights of
+// kernels/decoder_step.py::LoopWeights (w1, wx, wo, wf, bb, bias).  Scratch
+// (written): xt (E+D, Bp), yt (H+D, Bp) in the input type, g1 (B, N1), part
+// (splits, B, Ep) and sc (B, L) float32.  Outputs: t, h', c', z, alpha.
+// Sizes B, Bp, L, D, A, H, E, N1, G, Ep, K4, kc, splits, deep, k (rows per
+// image, a divisor of B).  Launches 7 kernels on the stream and returns the
+// first cudaError_t.
 extern "C" int sat_decoder_step(int dtype, const void* embed, const void* h, const void* c,
                                 const void* annot, const void* att_enc, const void* w1,
                                 const void* wx, const void* wo, const void* wf, const void* bb,
                                 const void* bias, void* xt, void* yt, void* g1, void* part,
-                                void* t_out, void* h_out, void* c_out, void* z_out,
+                                void* sc, void* t_out, void* h_out, void* c_out, void* z_out,
                                 void* alpha_out, int B, int Bp, int L, int D, int A, int H,
                                 int E, int N1, int G, int Ep, int K4, int kc, int splits,
-                                int deep, void* stream) {
+                                int deep, int k, void* stream) {
   const void* in[11] = {embed, h, c, annot, att_enc, w1, wx, wo, wf, bb, bias};
-  void* st[4] = {xt, yt, g1, part};
+  void* st[5] = {xt, yt, g1, part, sc};
   void* out[5] = {t_out, h_out, c_out, z_out, alpha_out};
-  const int n[14] = {B, Bp, L, D, A, H, E, N1, G, Ep, K4, kc, splits, deep};
+  const int n[15] = {B, Bp, L, D, A, H, E, N1, G, Ep, K4, kc, splits, deep, k};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0) return cudaSuccess;
   if (dtype == 0) return sat::launch<float>(in, st, out, n, s);
@@ -216,18 +233,20 @@ extern "C" int sat_decoder_step(int dtype, const void* embed, const void* h, con
   return cudaErrorInvalidValue;
 }
 
-// The launch plan of sat_decoder_step for these sizes: out[6 i + j] is
-// kernel i's grid x, y, z, threads, dynamic and static shared memory bytes.
-extern "C" int sat_decoder_step_plan(int dtype, int B, int L, int D, int H, int E, int N1,
-                                     int G, int Ep, int splits, int* out) {
-  int p[6][6];
+// The launch plan of sat_decoder_step for these sizes (B rows, k to an
+// image): out[6 i + j] is kernel i's grid x, y, z, threads, dynamic and
+// static shared memory bytes.
+extern "C" int sat_decoder_step_plan(int dtype, int B, int k, int L, int D, int H, int E,
+                                     int N1, int G, int Ep, int splits, int* out) {
+  int p[sat::NKERNELS][6];
+  if (k <= 0 || B % k) return cudaErrorInvalidValue;
   if (dtype == 0)
-    sat::plan<float>(B, L, D, H, E, N1, G, Ep, splits, p);
+    sat::plan<float>(B, k, L, D, H, E, N1, G, Ep, splits, p);
   else if (dtype == 1)
-    sat::plan<__nv_bfloat16>(B, L, D, H, E, N1, G, Ep, splits, p);
+    sat::plan<__nv_bfloat16>(B, k, L, D, H, E, N1, G, Ep, splits, p);
   else
     return cudaErrorInvalidValue;
-  for (int i = 0; i < 6; ++i)
+  for (int i = 0; i < sat::NKERNELS; ++i)
     for (int j = 0; j < 6; ++j) out[6 * i + j] = p[i][j];
   return cudaSuccess;
 }

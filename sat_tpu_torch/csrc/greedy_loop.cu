@@ -12,10 +12,11 @@
 // there).  The embedding table is passed capped at embed_norm; the wrapper
 // pre-fills tokens with PAD and alphas with zeros.
 //
-// Design.  A step is seven kernels over the whole batch, launched in order on
-// one stream by sat_greedy_loop: greedy_loop_hside, _attend, _gates and
-// _deepout run the four phases of decode_phases.cuh (whose comment gives
-// their design and what bounds them), and the selection takes three:
+// Design.  A step is eight kernels over the whole batch, launched in order on
+// one stream by sat_greedy_loop: greedy_loop_hside, _scores, _attend, _gates
+// and _deepout run the four phases of decode_phases.cuh (whose comment gives
+// their design and what bounds them; one image to a row here), and the
+// selection takes three:
 //   5. greedy_loop_tproj   t: phase 4's K slices summed, tanh(e + .), into tt
 //   6. greedy_loop_logits  t Wout as a tiled product over 64 rows by SEL_BN
 //                          columns; per (row, column tile) a partial: max,
@@ -83,7 +84,7 @@ template <typename T> struct LoopArgs {
   int start_i, end_i, pad_i, unk_i;
 };
 
-// -- the seven phases --------------------------------------------------------------
+// -- the eight phase kernels -------------------------------------------------------
 
 template <typename T>
 __global__ void __launch_bounds__(NT, 2) greedy_loop_hside(LoopArgs<T> a) {
@@ -91,14 +92,20 @@ __global__ void __launch_bounds__(NT, 2) greedy_loop_hside(LoopArgs<T> a) {
   hside_body<T>(a);
 }
 
+// The attention kernels take the scores' scratch sc (B, L) as an argument
+// of their own, leaving LoopArgs, whose layout the other kernels' schedules
+// are sensitive to (decode_phases.cuh), as it was.
 template <typename T>
-__global__ void __launch_bounds__(ATT_SLICE) greedy_loop_attend(LoopArgs<T> a, int t) {
-  const int row = blockIdx.x;
-  if (*a.done == a.B || a.fin[row]) return;
-  const float* alpha = attend_body<T>(a, row, nullptr);
-  if (blockIdx.y == 0)
-    for (int l = threadIdx.x; l < a.L; l += ATT_SLICE)
-      a.alphas[((size_t)row * (a.S + 1) + t) * a.L + l] = alpha[l];
+__global__ void __launch_bounds__(NT) greedy_loop_scores(LoopArgs<T> a, float* sc) {
+  if (*a.done == a.B || a.fin[blockIdx.x]) return;
+  scores_body<T>(a, 1, sc);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(ATT_SLICE, 8) greedy_loop_attend(LoopArgs<T> a, const float* sc,
+                                                                int t) {
+  if (*a.done == a.B || a.fin[blockIdx.x]) return;
+  attend_body<T>(a, 1, sc, a.alphas + (size_t)t * a.L, (size_t)(a.S + 1) * a.L, nullptr);
 }
 
 template <typename T>
@@ -235,7 +242,7 @@ __global__ void __launch_bounds__(NT) greedy_loop_select(LoopArgs<T> a, int t) {
 
 // -- host side ---------------------------------------------------------------------
 
-constexpr int NPHASES = 7;
+constexpr int NPHASES = 8;
 
 inline int vocab_tiles(int V) { return (V + SEL_BN - 1) / SEL_BN; }
 
@@ -244,44 +251,46 @@ inline int vocab_tiles(int V) { return (V + SEL_BN - 1) / SEL_BN; }
 template <typename T>
 void plan(int B, int L, int D, int E, int V, int N1, int G, int Ep, int splits,
           int (&p)[NPHASES][6]) {
-  int p4[4][6];
-  plan4<T>(B, L, D, N1, G, Ep, splits, p4);
+  int p5[5][6];
+  plan5<T>(B, 1, L, D, N1, G, Ep, splits, p5);
   const int rt = (B + BM - 1) / BM;
   const int sel[3][6] = {
       {(B * E + NT - 1) / NT, 1, 1, NT, 0, 0},
       {vocab_tiles(V), rt, 1, NT, (int)sizeof(Tiles<T, SEL_BN, SEL_KG>), 0},
       {(B + NWARPS - 1) / NWARPS, 1, 1, NT, 0, 0}};
   for (int j = 0; j < 6; ++j) {
-    for (int i = 0; i < 4; ++i) p[i][j] = p4[i][j];
-    for (int i = 0; i < 3; ++i) p[4 + i][j] = sel[i][j];
+    for (int i = 0; i < 5; ++i) p[i][j] = p5[i][j];
+    for (int i = 0; i < 3; ++i) p[5 + i][j] = sel[i][j];
   }
 }
 
 template <typename T>
-cudaError_t run(const LoopArgs<T>& a, cudaStream_t st) {
+cudaError_t run(const LoopArgs<T>& a, float* sc, cudaStream_t st) {
   static int allowed[5][MAX_DEVICES];  // per type: see allow_smem
   int p[NPHASES][6];
   plan<T>(a.B, a.L, a.D, a.E, a.V, a.N1, a.G, a.Ep, a.splits, p);
   cudaError_t err = allow_smem(greedy_loop_hside<T>, p[0][4], allowed[0]);
-  if (err == cudaSuccess) err = allow_smem(greedy_loop_attend<T>, p[1][4], allowed[1]);
-  if (err == cudaSuccess) err = allow_smem(greedy_loop_gates<T>, p[2][4], allowed[2]);
-  if (err == cudaSuccess) err = allow_smem(greedy_loop_deepout<T>, p[3][4], allowed[3]);
-  if (err == cudaSuccess) err = allow_smem(greedy_loop_logits<T>, p[5][4], allowed[4]);
+  if (err == cudaSuccess) err = allow_smem(greedy_loop_attend<T>, p[2][4], allowed[1]);
+  if (err == cudaSuccess) err = allow_smem(greedy_loop_gates<T>, p[3][4], allowed[2]);
+  if (err == cudaSuccess) err = allow_smem(greedy_loop_deepout<T>, p[4][4], allowed[3]);
+  if (err == cudaSuccess) err = allow_smem(greedy_loop_logits<T>, p[6][4], allowed[4]);
   if (err != cudaSuccess) return err;
   for (int t = 0; t <= a.S; ++t) {
     greedy_loop_hside<T><<<grid(p[0]), p[0][3], p[0][4], st>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    greedy_loop_attend<T><<<grid(p[1]), p[1][3], p[1][4], st>>>(a, t);
+    greedy_loop_scores<T><<<grid(p[1]), p[1][3], p[1][4], st>>>(a, sc);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    greedy_loop_gates<T><<<grid(p[2]), p[2][3], p[2][4], st>>>(a);
+    greedy_loop_attend<T><<<grid(p[2]), p[2][3], p[2][4], st>>>(a, sc, t);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    greedy_loop_deepout<T><<<grid(p[3]), p[3][3], p[3][4], st>>>(a);
+    greedy_loop_gates<T><<<grid(p[3]), p[3][3], p[3][4], st>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    greedy_loop_tproj<T><<<grid(p[4]), p[4][3], p[4][4], st>>>(a);
+    greedy_loop_deepout<T><<<grid(p[4]), p[4][3], p[4][4], st>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    greedy_loop_logits<T><<<grid(p[5]), p[5][3], p[5][4], st>>>(a, t);
+    greedy_loop_tproj<T><<<grid(p[5]), p[5][3], p[5][4], st>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    greedy_loop_select<T><<<grid(p[6]), p[6][3], p[6][4], st>>>(a, t);
+    greedy_loop_logits<T><<<grid(p[6]), p[6][3], p[6][4], st>>>(a, t);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    greedy_loop_select<T><<<grid(p[7]), p[7][3], p[7][4], st>>>(a, t);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -310,6 +319,7 @@ cudaError_t launch(const void* const* in, void* const* st, void* const* out, con
   a.tt = static_cast<T*>(st[5]);
   a.vpart = static_cast<TilePart*>(st[6]);
   a.done = static_cast<int*>(st[7]);
+  float* sc = static_cast<float*>(st[8]);
   a.tokens = static_cast<int*>(out[0]);
   a.alphas = static_cast<float*>(out[1]);
   a.scores = static_cast<float*>(out[2]);
@@ -324,7 +334,7 @@ cudaError_t launch(const void* const* in, void* const* st, void* const* out, con
   a.inv_sqrt_l = (float)pow((double)a.L, -0.5);  // as Python's float(L) ** -0.5
   a.temperature = temperature;
   a.start_i = special[0]; a.end_i = special[1]; a.pad_i = special[2]; a.unk_i = special[3];
-  return run<T>(a, stream);
+  return run<T>(a, sc, stream);
 }
 
 }  // namespace sat
@@ -333,24 +343,25 @@ cudaError_t launch(const void* const* in, void* const* st, void* const* out, con
 // weights of kernels/decoder_step.py::LoopWeights (w1, wx, wo, wf, bb, bias),
 // emb, wout (E, pad8(V)) and bout.  State (written): xt, yt, c, g1, part, tt
 // (E, Bp) in the input type with zero padding columns, vpart (B, VT) of
-// 16-byte tile partials, done (zeroed).  Outputs: tokens (B, S+2) int32
-// pre-filled with START and PADs, alphas (B, S+1, L) float32 zeroed, scores
-// (B,) float32 zeroed, flen (B,) int32, fin (B,) bool, both zeroed.  Sizes B,
+// 16-byte tile partials, done (zeroed), sc (B, L) float32 attention scores.
+// Outputs: tokens (B, S+2) int32 pre-filled with START and PADs, alphas (B,
+// S+1, L) float32 zeroed, scores (B,) float32 zeroed, flen (B,) int32, fin
+// (B,) bool, both zeroed.  Sizes B,
 // Bp, L, D, A, H, E, V, S, N1, G, Ep, K4, kc, splits, deep, VT (the
-// vocabulary tiles, ceil(V / 16); another value is refused).  Launches 7
+// vocabulary tiles, ceil(V / 16); another value is refused).  Launches 8
 // (S+1) kernels on the stream and returns the first cudaError_t.
 extern "C" int sat_greedy_loop(int dtype, const void* annot, const void* att_enc,
                                const void* w1, const void* wx, const void* wo, const void* wf,
                                const void* bb, const void* bias, const void* emb,
                                const void* wout, const void* bout, void* xt, void* yt, void* c,
                                void* g1, void* part, void* tt, void* vpart, void* done,
-                               void* tokens, void* alphas, void* scores, void* flen, void* fin,
+                               void* sc, void* tokens, void* alphas, void* scores, void* flen, void* fin,
                                int B, int Bp, int L, int D, int A, int H, int E, int V, int S,
                                int N1, int G, int Ep, int K4, int kc, int splits, int deep,
                                int VT, float temperature, int start_i, int end_i, int pad_i,
                                int unk_i, void* stream) {
   const void* in[11] = {annot, att_enc, w1, wx, wo, wf, bb, bias, emb, wout, bout};
-  void* st[8] = {xt, yt, c, g1, part, tt, vpart, done};
+  void* st[9] = {xt, yt, c, g1, part, tt, vpart, done, sc};
   void* out[5] = {tokens, alphas, scores, flen, fin};
   const int n[17] = {B, Bp, L, D, A, H, E, V, S, N1, G, Ep, K4, kc, splits, deep, VT};
   const int special[4] = {start_i, end_i, pad_i, unk_i};

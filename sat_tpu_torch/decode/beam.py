@@ -306,8 +306,9 @@ def beam_search(params, cfg: SATConfig, annotations: torch.Tensor, *,
 
     ``fused`` chooses the implementation: ``False`` the plain path, whose
     attention reads the (B, L, .) annotations once per image for its k
-    slots; ``True`` the step kernels (``kernels/decoder_step.py``) on B k
-    row copies of the annotations, plus a matmul for the vocabulary.
+    slots; ``True`` the step kernels (``kernels/decoder_step.py``) at B k
+    rows, which read the same (B, L, .) tensors once per image for its k
+    slots too, plus a matmul for the vocabulary.
     ``None`` is ``decode_route``'s beam route: the step kernels on a CUDA
     tensor, except for a deeper LSTM stack or ``decoder_noise`` (the kernels
     compute attention and the LSTM from one hidden state and need one LSTM
@@ -339,17 +340,14 @@ def beam_search(params, cfg: SATConfig, annotations: torch.Tensor, *,
     if fused:
         lw = step_weights(params, cfg, annotations.dtype)         # once per decode
         emb = capped_embedding(params, cfg)
-        # the kernels read one row per slot: image-major, slot-minor copies
-        # (contiguous: for one image the reshape is a stride-0 view)
-        rep = lambda x: x[:, None].expand(b, k, *x.shape[1:]).reshape(
-            b * k, *x.shape[1:]).contiguous()
-        annot_flat, ae_flat = rep(annotations), rep(att_enc)
 
         def step(prev_embed, h, c, t):
+            # B k rows, image-major and slot-minor, over the (B, L, .)
+            # tensors: the kernels read each image once for its k slots
             tproj, h1, c1, _, alpha = fused_decoder_step(
                 lw, cfg, prev_embed.contiguous(),
                 h[0].reshape(b * k, -1).contiguous(),
-                c[0].reshape(b * k, -1).contiguous(), annot_flat, ae_flat)
+                c[0].reshape(b * k, -1).contiguous(), annotations, att_enc)
             return (fused_output_logits(params, cfg, tproj, emb, mesh),
                     h1.reshape(h.shape), c1.reshape(c.shape), alpha)
     else:

@@ -36,19 +36,19 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ARGTYPES = {
     "decoder_step": {
         # dtype; embed, h, c, annot, att_enc, w1, wx, wo, wf, bb, bias, xt,
-        # yt, g1, part, t, h', c', z, alpha; B, Bp, L, D, A, H, E, N1, G, Ep,
-        # K4, kc, splits, deep; stream
-        "sat_decoder_step": [_I] + [_P] * 20 + [_I] * 14 + [_P],
-        # dtype, B, L, D, H, E, N1, G, Ep, splits; out (36 ints)
-        "sat_decoder_step_plan": [_I] * 10 + [ctypes.POINTER(_I)],
+        # yt, g1, part, sc, t, h', c', z, alpha; B, Bp, L, D, A, H, E, N1, G,
+        # Ep, K4, kc, splits, deep, k; stream
+        "sat_decoder_step": [_I] + [_P] * 21 + [_I] * 15 + [_P],
+        # dtype, B, k, L, D, H, E, N1, G, Ep, splits; out (42 ints)
+        "sat_decoder_step_plan": [_I] * 11 + [ctypes.POINTER(_I)],
     },
     "greedy_loop": {
         # dtype; annot, att_enc, w1, wx, wo, wf, bb, bias, emb, wout, bout,
-        # xt, yt, c, g1, part, tt, vpart, done, tokens, alphas, scores, flen,
-        # fin; B, Bp, L, D, A, H, E, V, S, N1, G, Ep, K4, kc, splits, deep,
-        # VT; temperature; start, end, pad, unk; stream
-        "sat_greedy_loop": [_I] + [_P] * 24 + [_I] * 17 + [_F] + [_I] * 4 + [_P],
-        # dtype, B, L, D, E, V, N1, G, Ep, splits; out (42 ints)
+        # xt, yt, c, g1, part, tt, vpart, done, sc, tokens, alphas, scores,
+        # flen, fin; B, Bp, L, D, A, H, E, V, S, N1, G, Ep, K4, kc, splits,
+        # deep, VT; temperature; start, end, pad, unk; stream
+        "sat_greedy_loop": [_I] + [_P] * 25 + [_I] * 17 + [_F] + [_I] * 4 + [_P],
+        # dtype, B, L, D, E, V, N1, G, Ep, splits; out (48 ints)
         "sat_greedy_loop_plan": [_I] * 10 + [ctypes.POINTER(_I)],
     },
 }

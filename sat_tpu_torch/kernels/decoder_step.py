@@ -7,13 +7,20 @@ Replaces the Pallas kernel ``sat_tpu/kernels/decoder_step.py::_kernel``
 in ``fused_output_logits``, as the JAX package leaves it to XLA.
 
 What bounds it on an H100: a step's products read 4.6 M weights (18.6 MB in
-f32 at n64) for every row's multiply-adds.  The design runs the step as the
-batch-wide phases it shares with the greedy loop (``csrc/decode_phases.cuh``:
-three products tiled over 64 rows, and the attention per row) between a
-prologue that lays e and h out feature-major and an epilogue that finishes
-t: six kernels per step, launched by one C call, each weight read once per
-tile of 64 rows.  The phases index the packed layout ``LoopWeights``, which
-this module defines (``pack_loop_weights``) and the loop kernels share.
+f32 at n64) for every row's multiply-adds, and the attention reads the
+annotations (103 MB at L 196, D 2048 for 64 images in f32).  The design runs
+the step as the batch-wide phases it shares with the greedy loop
+(``csrc/decode_phases.cuh``: three products tiled over 64 rows, the
+attention scores once per row, and the attention's context per image and D
+slice) between a prologue that lays e and h out feature-major and an
+epilogue that finishes t: seven kernels per step, launched by one C call,
+each weight read once per tile of 64 rows and each image's annotations once
+for all the rows that share it.  Rows may share images: N = Bi k rows over
+(Bi, L, .) annotations, image-major and slot-minor, as beam search's B k
+slots read their image (the TPU kernel takes k-fold copies instead; the
+plain version makes them, ``repeat_interleave``).  The phases index the
+packed layout ``LoopWeights``, which this module defines
+(``pack_loop_weights``) and the loop kernels share.
 
 ``fused_decoder_step`` launches the kernels for CUDA tensors and runs
 ``fused_decoder_step_plain``, the same math in PyTorch, for CPU tensors.  It
@@ -39,7 +46,7 @@ MAX_SMEM = 232448      # bytes of shared memory a block may use on Hopper
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernels one call launches, in order (csrc/decoder_step.cu, named
 # decoder_step_<kernel>)
-KERNELS = ("in", "hside", "attend", "gates", "deepout", "out")
+KERNELS = ("in", "hside", "scores", "attend", "gates", "deepout", "out")
 # phase 4 splits its K rows into this many slices; the caller sums their
 # partial products in slice order
 DEEPOUT_SPLITS = 16
@@ -83,14 +90,29 @@ def pad8(n: int) -> int:
 
 
 def attend_smem_bytes(L: int) -> int:
-    """Dynamic shared memory of an attend block: the row's L scores."""
+    """The bytes of one row's L attention scores in float32, padded to 16."""
     return 4 * ((L + 3) // 4 * 4)
 
 
 def fused_step_supported(cfg: SATConfig, L: int) -> bool:
-    """The kernels' gate: one LSTM layer, and attend's L scores fit a
-    block's shared memory."""
+    """The kernels' gate: one LSTM layer, and one row's L scores fit a
+    block's shared memory.  The attention kernels keep the scores in device
+    memory and stage L in chunks, so L does not bound them; the bound on L
+    is kept so that every configuration takes the route it took when a
+    block held a row's scores."""
     return cfg.decoder_layers == 1 and attend_smem_bytes(L) <= MAX_SMEM
+
+
+def rows_per_image(n: int, images: int) -> int:
+    """k, the rows that share each of ``images`` images among ``n`` rows
+    (image-major, slot-minor: row r reads image r // k); raises
+    ``ValueError`` unless n is a multiple of the images."""
+    if images <= 0 or n % images:
+        if n == images == 0:
+            return 1
+        raise ValueError(f"{n} rows do not share {images} images evenly: "
+                         "N must be a multiple of the images")
+    return n // images
 
 
 class LoopWeights(NamedTuple):
@@ -219,8 +241,13 @@ def fused_decoder_step_plain(lw: LoopWeights, cfg: SATConfig,
                              ) -> Tuple[torch.Tensor, ...]:
     """The kernels' function in PyTorch on the packed weights: float
     accumulation, values rounded to the input type where the kernels round
-    them."""
+    them.  Annotations and att_enc of Bi images serve N = Bi k rows, k to
+    an image (``rows_per_image``): the step on their k-fold copies."""
     dt = prev_embed.dtype
+    k = rows_per_image(prev_embed.shape[0], annotations.shape[0])
+    if k > 1:
+        annotations = annotations.repeat_interleave(k, 0)
+        att_enc = att_enc.repeat_interleave(k, 0)
     w = FusedWeights(*(x.float() for x in unpack_loop_weights(lw)))
     t, h_new, c_new, zt, alpha = step_math(w, cfg.deep_output, dt, prev_embed,
                                            h, c, annotations, att_enc)
@@ -265,14 +292,14 @@ def stream_ptr(device: torch.device) -> int:
 
 
 def step_plan(B: int, L: int, D: int, A: int, H: int, E: int,
-              dtype: torch.dtype = torch.float32):
-    """The launch plan of one call, as the C side computes it: for each
-    kernel of ``KERNELS``, (grid (x, y, z), threads, dynamic and static
-    shared memory bytes).  Needs the built library."""
+              dtype: torch.dtype = torch.float32, k: int = 1):
+    """The launch plan of one call at B rows, k to an image, as the C side
+    computes it: for each kernel of ``KERNELS``, (grid (x, y, z), threads,
+    dynamic and static shared memory bytes).  Needs the built library."""
     lib = _build.load("decoder_step")
-    out = (ctypes.c_int * 36)()
+    out = (ctypes.c_int * (6 * len(KERNELS)))()
     _build.check(lib, lib.sat_decoder_step_plan(
-        _DTYPES[dtype], B, L, D, H, E, pad8(A + D + 4 * H), pad8(4 * H),
+        _DTYPES[dtype], B, k, L, D, H, E, pad8(A + D + 4 * H), pad8(4 * H),
         pad8(E), DEEPOUT_SPLITS, out), "decoder_step plan")
     return {name: (tuple(out[6 * i:6 * i + 3]), out[6 * i + 3],
                    out[6 * i + 4], out[6 * i + 5])
@@ -286,22 +313,27 @@ def fused_decoder_step(lw: LoopWeights, cfg: SATConfig,
     """One fused decode step minus the vocab projection, on weights in the
     phase kernels' layout (``step_weights``).
 
-    prev_embed (N, E); h, c (N, H); annotations (N, L, D); att_enc (N, L, A).
-    Returns (t (N, E), h', c', zt (N, D)) in the input type and alpha (N, L)
-    float32; ``logits = fused_output_logits(t)``."""
+    prev_embed (N, E); h, c (N, H); annotations (Bi, L, D) and att_enc
+    (Bi, L, A) of Bi images, N = Bi k: row r attends over image r // k (a
+    beam's k slots share their image; Bi = N is one image per row).
+    Raises ``ValueError`` unless N is a multiple of Bi.  Returns (t (N, E),
+    h', c', zt (N, D)) in the input type and alpha (N, L) float32;
+    ``logits = fused_output_logits(t)``."""
     global launches
     if prev_embed.device.type == "cpu":
         return fused_decoder_step_plain(lw, cfg, prev_embed, h, c,
                                         annotations, att_enc)
     if prev_embed.device.type != "cuda":
         raise ValueError(f"no kernel for device {prev_embed.device}")
-    n, L, D = annotations.shape
+    bi, L, D = annotations.shape
+    n = prev_embed.shape[0]
+    k = rows_per_image(n, bi)
     E, H, A = prev_embed.shape[-1], h.shape[-1], att_enc.shape[-1]
     dt, dev = prev_embed.dtype, prev_embed.device
     _check(dict(prev_embed=prev_embed, h=h, c=c, annotations=annotations,
                 att_enc=att_enc), dt, dev)
     _check_shapes(dict(prev_embed=(prev_embed.shape, (n, E)), h=(h.shape, (n, H)),
-                       c=(c.shape, (n, H)), att_enc=(att_enc.shape, (n, L, A))))
+                       c=(c.shape, (n, H)), att_enc=(att_enc.shape, (bi, L, A))))
     check_loop_weights(lw, D, A, H, E, dt, dev)
     if attend_smem_bytes(L) > MAX_SMEM:
         raise ValueError("fused step: L attention scores exceed shared memory")
@@ -309,11 +341,13 @@ def fused_decoder_step(lw: LoopWeights, cfg: SATConfig,
     K4, kc = deepout_rows(H, D, cfg.deep_output)
     bp = pad8(n)
 
-    # scratch: feature-major [e; beta z] and [h; z], the products' float32 sums
+    # scratch: feature-major [e; beta z] and [h; z], the products' float32
+    # sums, the attention scores
     xt = torch.empty(E + D, bp, dtype=dt, device=dev)
     yt = torch.empty(H + D, bp, dtype=dt, device=dev)
     g1 = torch.empty(n, n1, dtype=torch.float32, device=dev)
     part = torch.empty(DEEPOUT_SPLITS, n, Ep, dtype=torch.float32, device=dev)
+    sc = torch.empty(n, L, dtype=torch.float32, device=dev)
     t = torch.empty(n, E, dtype=dt, device=dev)
     h_new = torch.empty(n, H, dtype=dt, device=dev)
     c_new = torch.empty(n, H, dtype=dt, device=dev)
@@ -323,9 +357,9 @@ def fused_decoder_step(lw: LoopWeights, cfg: SATConfig,
     with torch.cuda.device(dev):
         err = lib.sat_decoder_step(
             _DTYPES[dt], *ptrs(prev_embed, h, c, annotations, att_enc, *lw,
-                               xt, yt, g1, part, t, h_new, c_new, zt, alpha),
+                               xt, yt, g1, part, sc, t, h_new, c_new, zt, alpha),
             n, bp, L, D, A, H, E, n1, G, Ep, K4, kc, DEEPOUT_SPLITS,
-            int(cfg.deep_output), stream_ptr(dev))
+            int(cfg.deep_output), k, stream_ptr(dev))
     _build.check(lib, err, "decoder_step kernels")
     launches += 1
     return t, h_new, c_new, zt, alpha

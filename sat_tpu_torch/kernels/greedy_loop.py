@@ -15,19 +15,21 @@ Dropped TPU artifacts: the 8-row sublane padding, the one-hot embedding
 matmul (the select kernel loads the row), the time-major output layout and
 the 13 MB VMEM gate.
 
-Design: one decode step for all B rows is seven kernels (attention-side
-product, attention, gate product with the LSTM cell, deep-output product,
-then the selection as t, the vocabulary product with per-tile partials of
-the selection, and their combine per row), launched 7 (S+1) times on the
-current stream by one C call.  The first four are the phases the fused step
-runs too (``csrc/decode_phases.cuh``); the three products there and the
-vocabulary product are tiled over 64 rows, so each weight, Wout included, is
-read once per step per tile of 64 rows.  The vocabulary product splits V
-into tiles of ``VOCAB_TILE`` columns; each (row, tile) leaves one partial
-(the tile's max and sum of exponentials, its best unmasked logit and index),
-and the select kernel combines a row's partials in a fixed order
-(``tile_select`` is the same selection in PyTorch).  Nothing V-wide is held
-per row, so the vocabulary does not bound the kernels.  The kernel
+Design: one decode step for all B rows is eight kernels (attention-side
+product, attention scores, attention context, gate product with the LSTM
+cell, deep-output product, then the selection as t, the vocabulary product
+with per-tile partials of the selection, and their combine per row),
+launched 8 (S+1) times on the current stream by one C call.  The first five
+are the phases the fused step runs too (``csrc/decode_phases.cuh``, one
+image to a row here); the three products there and the vocabulary product
+are tiled over 64 rows, so each weight, Wout included, is read once per step
+per tile of 64 rows, and each row's scores are computed once per step.  The
+vocabulary product splits V into tiles of ``VOCAB_TILE`` columns; each (row,
+tile) leaves one partial (the tile's max and sum of exponentials, its best
+unmasked logit and index), and the select kernel combines a row's partials
+in a fixed order (``tile_select`` is the same selection in PyTorch).
+Nothing V-wide is held per row, so the vocabulary does not bound the
+kernels.  The kernel
 boundaries stand in for grid-wide barriers, and a device count of finished
 rows makes every later kernel return at once when the whole batch has
 finished.  ``decoder_step.pack_loop_weights`` and
@@ -60,7 +62,8 @@ from .decoder_step import (DEEPOUT_SPLITS, _DTYPES, FusedWeights,
 launches = 0
 
 NEG_INF = -1e9
-PHASES = ("hside", "attend", "gates", "deepout", "tproj", "logits", "select")
+PHASES = ("hside", "scores", "attend", "gates", "deepout", "tproj", "logits",
+          "select")
 VOCAB_TILE = 16        # SEL_BN in csrc/greedy_loop.cu: columns per logits block
 
 
@@ -290,8 +293,8 @@ def run_loop(lw: LoopWeights, emb, wout, bout, cfg: SATConfig, annotations,
     bp, vt = pad8(b), vocab_tiles(V)
 
     # feature-major activations, padding columns zero: xt = [e; beta z],
-    # yt = [h; z], tt = t; c and the products' outputs in float32; one
-    # 16-byte partial per row and vocabulary tile
+    # yt = [h; z], tt = t; c, the products' outputs and the attention
+    # scores in float32; one 16-byte partial per row and vocabulary tile
     xt = torch.zeros(E + D, bp, dtype=dt, device=dev)
     xt[:E, :b] = emb[start_i][:, None]
     yt = torch.zeros(H + D, bp, dtype=dt, device=dev)
@@ -301,6 +304,7 @@ def run_loop(lw: LoopWeights, emb, wout, bout, cfg: SATConfig, annotations,
     g1 = torch.empty(b, n1, dtype=torch.float32, device=dev)
     part = torch.empty(DEEPOUT_SPLITS, b, Ep, dtype=torch.float32, device=dev)
     vpart = torch.empty(b, vt, 4, dtype=torch.float32, device=dev)
+    sc = torch.empty(b, L, dtype=torch.float32, device=dev)
 
     tokens = torch.full((b, S + 2), pad_i, dtype=torch.int32, device=dev)
     tokens[:, 0] = start_i
@@ -313,8 +317,8 @@ def run_loop(lw: LoopWeights, emb, wout, bout, cfg: SATConfig, annotations,
         err = lib.sat_greedy_loop(
             _DTYPES[dt], *ptrs(annotations, att_enc, lw.w1, lw.wx, lw.wo, lw.wf,
                                lw.bb, lw.bias, emb, wout, bout, xt, yt, c, g1,
-                               part, tt, vpart, done, tokens, alphas, scores,
-                               flen, finished),
+                               part, tt, vpart, done, sc, tokens, alphas,
+                               scores, flen, finished),
             b, bp, L, D, A, H, E, V, S, n1, G, Ep, K4, kc, DEEPOUT_SPLITS,
             int(cfg.deep_output), vt, float(temperature), start_i, end_i,
             pad_i, unk_i, stream_ptr(dev))

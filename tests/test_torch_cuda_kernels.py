@@ -127,6 +127,54 @@ def test_step_kernel(shape, dtype, deep):
         assert (x.float() - y.float()).abs().max().item() <= tol
 
 
+def _grouped_step_args(k, L, D, dtype, images=8, seed=4):
+    """Step arguments at n64's decoder widths for ``images`` images of L
+    positions and D features shared k rows to an image, on the card."""
+    dev = _card()
+    cfg, p = make(256, D, 128, 512, 97)
+    p = p.to(dev)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n = images * k
+    a = torch.rand(images, L, D, generator=g).to(dev, dtype)
+    att_enc = TD.attention_precompute(p.to(dtype), a).contiguous()
+    e, h, c = (torch.randn(n, w, generator=g).to(dev, dtype) for w in (256, 512, 512))
+    return KS.step_weights(p, cfg, dtype), cfg, e, h, c, a, att_enc
+
+
+@pytest.mark.parametrize("k", [1, 3, 20])
+@pytest.mark.parametrize("L", [1, 49, 169, 196])
+@pytest.mark.parametrize("D", [300, 576, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_step_kernel(k, L, D, dtype):
+    """The step kernels at N = 8 k rows over 8 images: against the plain
+    version (which repeats each image k-fold), and bit for bit equal to the
+    same call on k-fold copies and to a second call (every sum over a row in
+    a fixed order, whatever k; no float atomics)."""
+    lw, cfg, e, h, c, a, att_enc = _grouped_step_args(k, L, D, dtype)
+    rep = lambda x: x.repeat_interleave(k, 0).contiguous()
+    n0 = KS.launches
+    got = KS.fused_decoder_step(lw, cfg, e, h, c, a, att_enc)
+    again = KS.fused_decoder_step(lw, cfg, e, h, c, a, att_enc)
+    copied = KS.fused_decoder_step(lw, cfg, e, h, c, rep(a), rep(att_enc))
+    ref = KS.fused_decoder_step_plain(lw, cfg, e, h, c, a, att_enc)
+    torch.cuda.synchronize()
+    assert KS.launches == n0 + 3
+    for name, x, y, z, r in zip(("t", "h'", "c'", "z", "alpha"), got, again, copied, ref):
+        assert torch.equal(x, y) and torch.equal(x, z), name
+        scale = max(1.0, r.float().abs().max().item())
+        # bf16 outputs may differ by one rounding step of the output type
+        tol = (1e-4 if dtype == torch.float32 else 1e-2) * scale
+        assert (x.float() - r.float()).abs().max().item() <= tol, name
+
+
+def test_grouped_wrapper_rejects_uneven_rows():
+    lw, cfg, e, h, c, a, att_enc = _grouped_step_args(3, 5, 300, torch.float32)
+    with pytest.raises(ValueError, match="multiple of the images"):
+        KS.fused_decoder_step(lw, cfg, e[:-1], h[:-1], c[:-1], a, att_enc)
+    with pytest.raises(ValueError, match="att_enc"):
+        KS.fused_decoder_step(lw, cfg, e, h, c, a, att_enc[:4].contiguous())
+
+
 @pytest.mark.parametrize("shape", LOOP_SHAPES)
 @pytest.mark.parametrize("tying,embed_norm", [(False, None), (True, 1.5)])
 @pytest.mark.parametrize("temperature", [1.0, 0.7])
