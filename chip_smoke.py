@@ -16,7 +16,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
    a call; each tiled product of the decode step must fill 64 blocks, and
    the loop's vocabulary product, ``greedy_loop_logits``, too at V 4096 in
    13-15), and the step's attention kernels at the beam path's N = 192
-   rows over 64 images (their grids; no thread-block cluster);
+   rows over 64 images (their grids; no thread-block cluster); the bf16
+   products' tiles (tensor cores: columns, K rows a stage, stages, K groups;
+   ``bf16_design``), which must be ``BF16_TILES``, the K order the CPU
+   tests sum in, and their blocks at B = 64 and N = 192, with the same
+   64-block gate (also at each configuration of 13-15);
 3. hold each kernel against its plain PyTorch version on the card, float32,
    n64 weights, B = 64, at the shapes of the main path, then at other shapes
    that take the kernels' other code paths (B = 192 and 300 at n64, the
@@ -45,7 +49,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    kernel's busy time per call at 64 and 192 rows; for information, the
    ``select yardstick``: one ``torch.addmm(bout, t, Wout)`` at (64, E) x
    (E, V) beside the busy time of ``greedy_loop_logits`` (also at each V
-   4096 shape of 13-15);
+   4096 shape of 13-15); each bf16 product kernel's busy time at N = 64
+   and 192 beside one ``torch.mm`` at its bf16 shape and its bf16 bound
+   (``product_yardsticks``; also in 13-15, with the bf16 step at N = 192
+   and the bf16 loop timed by kernel);
 8. training at the n64 configuration (the checkpoint header's settings at
    float32): (a) three ``Trainer.train_step`` calls (SGD, no momentum,
    epsilon 1, no augmentation, no dropout) from the checkpoint's weights on
@@ -793,6 +800,84 @@ def attend_design(tag, plan, n, k):
           f"{ts} threads; attend grid {ga} (images, D slices, row chunks) x {ta} threads, "
           f"smem {da} B dynamic; cluster none (scores written once per row, each "
           "attend block takes its rows' softmax)", flush=True)
+
+
+def bf16_design(tag, L, D, A, H, E, V, loop=True):
+    """The bf16 products' tiles and launch plans at these widths, printed
+    (``[design]``): each product's tile (columns, K rows a stage, stages, K
+    groups; tensor cores, no cluster), held to ``BF16_TILES`` (the K order
+    the CPU tests sum in), and its blocks at B rows and at N = B_BEAM over B
+    images; at B each of hside, gates and deepout must fill 64 blocks, and
+    where ``loop`` and V >= 4096 the loop's logits too.  Returns {"tiles",
+    "blocks": {product: {rows: blocks}}, "smem": {product: bytes}}."""
+    import torch
+    from sat_tpu_torch.kernels import decoder_step as KS
+    from sat_tpu_torch.kernels import greedy_loop as KL
+    bf = torch.bfloat16
+    tiles = KS.tile_design(bf)
+    check(tiles == KS.BF16_TILES, f"{tag}: the step's bf16 tiles are BF16_TILES ({tiles})")
+    plans = {B: KS.step_plan(B, L, D, A, H, E, bf),
+             B_BEAM: KS.step_plan(B_BEAM, L, D, A, H, E, bf, k=K_BEAM)}
+    size = lambda g: g[0] * g[1] * g[2]
+    blocks = {k: {n: size(p[k][0]) for n, p in plans.items()} for k in tiles}
+    smem = {k: plans[B][k][2] for k in tiles}
+    if loop:
+        loop_tiles = KL.tile_design(bf)
+        check(loop_tiles == KL.BF16_TILES, f"{tag}: the loop's bf16 tiles are BF16_TILES "
+              f"({loop_tiles})")
+        lp = KL.loop_plan(B, L, D, A, H, E, V, bf)
+        check(all(size(lp[k][0]) == blocks[k][B] for k in tiles),
+              f"{tag}: the loop's bf16 products take the step's grids")
+        tiles = loop_tiles
+        blocks["logits"], smem["logits"] = {B: size(lp["logits"][0])}, lp["logits"][2]
+    print(f"[design] {tag} bf16 products at L={L} D={D} V={V} (mma.sync m16n8k16, float32 "
+          "sums, no cluster): " + "; ".join(
+              f"{k} tile 64 x {t['bn']}, {t['bk']} K rows a stage, {t['stages']} stages, "
+              f"{t['groups']} K groups, smem {smem[k]} B, blocks "
+              + ", ".join(f"{b} at N={n}" for n, b in blocks[k].items())
+              for k, t in tiles.items()), flush=True)
+    for k in ("hside", "gates", "deepout") + (("logits",) if loop and V >= 4096 else ()):
+        check(blocks[k][B] >= 64, f"{tag} bf16 {k} fills 64 blocks at B={B}")
+    return {"tiles": tiles, "blocks": blocks, "smem": smem}
+
+
+def product_yardsticks(widths, step_busy, loop_busy, steps, card, tag, dev):
+    """For information: beside each bf16 product kernel's busy us per call
+    (``step_busy``, ms per step call by kernel: at N = B under the label
+    ``_bf16`` and at N = B_BEAM under ``_192_bf16``; at B, where the step's
+    is not given, and for logits, the loop's from ``loop_busy``, ms per
+    decode by phase, per step of ``steps``), one ``torch.mm``
+    at that product's bf16 shape, (N x K) by (K x columns), which the port
+    never calls (CUDA events), and the product's bf16 bound: its operands
+    read once and its float32 sums written once at 3.35 TB/s, against its
+    operations at 989 TFLOP/s.  Returns {product: {rows: {busy_us, mm_us,
+    bound_us, bound_by}}}."""
+    import torch
+    from sat_tpu_torch.kernels.decoder_step import pad8
+    L, D, A, H, E, V = widths
+    shapes = {"hside": (H, pad8(A + D + 4 * H)), "gates": (E + D, pad8(4 * H)),
+              "deepout": (H + D, pad8(E)), "logits": (E, pad8(V))}
+    g = torch.Generator(device="cpu").manual_seed(23)
+    out = {}
+    for name, (K, cols) in shapes.items():
+        w = torch.randn(K, cols, generator=g).to(dev, torch.bfloat16)
+        for n in ((B,) if name == "logits" else (B, B_BEAM)):
+            x = torch.randn(n, K, generator=g).to(dev, torch.bfloat16)
+            mm_us = cuda_ms(lambda: torch.mm(x, w), calls=20) * 1e3
+            b = step_busy.get(name + ("_bf16" if n == B else "_192_bf16"))
+            if b is None and n == B and loop_busy.get(name + "_bf16") is not None:
+                b = loop_busy[name + "_bf16"] / steps
+            bound_ms, by = bound(nbytes(x, w) + 4 * n * cols, 2 * n * K * cols, "bfloat16")
+            out.setdefault(name, {})[n] = {"busy_us": None if b is None else b * 1e3,
+                                           "mm_us": mm_us, "bound_us": bound_ms * 1e3,
+                                           "bound_by": by}
+    fmt = lambda v: "not measured" if v is None else f"{v:.2f} us"
+    print(f"[time] {tag} ({card}) bf16 products, busy per call (logits per step of {steps}) "
+          "against one torch.mm at the product's shape and the bf16 bound: " + "; ".join(
+              f"{k} N={n} {fmt(r['busy_us'])}, mm {r['mm_us']:.2f} us, bound "
+              f"{r['bound_us']:.3f} us ({r['bound_by']})"
+              for k, rows in out.items() for n, r in rows.items()), flush=True)
+    return out
 
 
 def check_loop(label, la, bf16=False):
@@ -2014,11 +2099,13 @@ def decode_kernel_checks(model, imgs, rows, tag, loop=True):
     grouped rows (``check_grouped``: B_BEAM rows k = K_BEAM to an image, as
     the beam path, and where ``loop`` 320 rows k = 20 to an image, as
     ``search``'s beamk 20) and, where ``loop``, the loop at B rows, f32 and bf16, with the
-    launch plans printed and each tiled product filling 64 blocks.  Returns
-    {"L", "D", "plans", "args": the step's arguments by rows (f"{n}_bf16"
+    launch plans printed and each tiled product filling 64 blocks, in f32
+    and in bf16 (``bf16_design``).  Returns {"L", "D", "plans", "bf16":
+    ``bf16_design``'s, "args": the step's arguments by rows (f"{n}_bf16"
     for bf16; f"{n}_k{k}" grouped), "step_err": likewise, and with ``loop``
-    "la": the loop's f32 arguments, "loop": (agreement, max error,
-    outputs), "loop_bf16": (agreement, max error)}."""
+    "la": the loop's f32 arguments, "la16": its bf16 ones, "loop":
+    (agreement, max error, outputs), "loop_bf16": (agreement, max error,
+    outputs)}."""
     import torch
     from sat_tpu_torch.kernels import decoder_step as KS
     from sat_tpu_torch.kernels import greedy_loop as KL
@@ -2040,6 +2127,7 @@ def decode_kernel_checks(model, imgs, rows, tag, loop=True):
         for k in tiled:
             check(plan[k][0][0] * plan[k][0][1] * plan[k][0][2] >= 64,
                   f"{tag} {what}: {k} fills 64 blocks")
+    design16 = bf16_design(tag, L, D, A, H, E, V, loop)
     bf = lambda t: t.to(torch.bfloat16).contiguous()
     args, errs = {}, {}
     for n in rows:
@@ -2064,14 +2152,15 @@ def decode_kernel_checks(model, imgs, rows, tag, loop=True):
             args[key] = grouped_args(params, vcfg, an_all, ae_all, k, n, seed=16 + k, dtype=dt)
             errs[key] = check_grouped(f"{tag} L={L} D={D} N={n} {label[1:] or 'f32'}",
                                       args[key], k, rel)[1]
-    out = {"L": L, "D": D, "plans": plans, "args": args, "step_err": errs}
+    out = {"L": L, "D": D, "plans": plans, "bf16": design16, "args": args, "step_err": errs}
     if loop:
         _, _, e, h0, c0, an, ae = args[B]
         la = (*KL.loop_weights(params, vcfg, torch.float32), vcfg, an, ae, h0, c0)
         la16 = (*KL.loop_weights(params, vcfg, torch.bfloat16), vcfg, *map(bf, (an, ae, h0, c0)))
-        out.update(la=la, loop=check_loop(f"{tag} L={L} D={D} V={V} B={B} f32", la),
+        out.update(la=la, la16=la16,
+                   loop=check_loop(f"{tag} L={L} D={D} V={V} B={B} f32", la),
                    loop_bf16=check_loop(f"{tag} L={L} D={D} V={V} B={B} bf16", la16,
-                                        bf16=True)[:2])
+                                        bf16=True))
         # no float is summed by atomics: a second call repeats the first bit for bit
         for label, args in (("f32", la), ("bf16", la16)):
             pair = [KL.greedy_loop(*args, max_gen_length=S) for _ in range(2)]
@@ -2303,7 +2392,9 @@ def main_path_and_times(model, imgs, kc, train, card, tag, extra=None):
     B_BEAM and the loop on ``kc``'s arguments (``decode_kernel_checks``),
     greedy and beam captioning and ``extra``'s functions; the train step
     ``train`` (``steps_on_one_batch``) where given; both kernels' bounds and
-    their entries of the ``kernels`` line."""
+    their entries of the ``kernels`` line; in bf16, the step at N = B_BEAM
+    and the loop timed by kernel, and each product beside its ``torch.mm``
+    yardstick (``product_yardsticks``)."""
     import torch
     from sat_tpu_torch.decode.beam import greedy_decode
     from sat_tpu_torch.kernels import decoder_step as KS
@@ -2320,6 +2411,7 @@ def main_path_and_times(model, imgs, kc, train, card, tag, extra=None):
     check(res.tokens.shape == (B, 1, S + 2) and len(caps) == B, f"{tag}: result shapes")
 
     la, a192 = kc["la"], kc["args"][f"{B_BEAM}_k{K_BEAM}"]
+    la16, a192_16 = kc["la16"], kc["args"][f"{B_BEAM}_k{K_BEAM}_bf16"]
     times = {
         "encode": timed(lambda: model.encode(imgs)),
         "decoder_step_192": timed(lambda: KS.fused_decoder_step(*a192),
@@ -2330,6 +2422,11 @@ def main_path_and_times(model, imgs, kc, train, card, tag, extra=None):
         "greedy_loop": timed(lambda: KL.greedy_loop(*la, max_gen_length=S), "greedy_loop_",
                              parts=KL.PHASES),
         "greedy_loop_plain": timed(lambda: KL.greedy_loop_plain(*la, max_gen_length=S)),
+        "decoder_step_192_bf16": timed(lambda: KS.fused_decoder_step(*a192_16),
+                                       "decoder_step_", calls=20, profiled=10,
+                                       parts=KS.KERNELS),
+        "greedy_loop_bf16": timed(lambda: KL.greedy_loop(*la16, max_gen_length=S),
+                                  "greedy_loop_", parts=KL.PHASES),
         "greedy_captioning": timed(lambda: greedy_decode(
             model.decoder, model.cfg, model.encode(imgs), max_gen_length=S)),
         "beam_captioning": timed(lambda: model.caption(
@@ -2367,6 +2464,12 @@ def main_path_and_times(model, imgs, kc, train, card, tag, extra=None):
     yardstick = select_yardstick(
         la, times["greedy_loop"]["busy_parts_ms"],
         int(torch.where(kl[4], kl[3] + 1, S + 1).max()), card, tag)
+    kl16 = kc["loop_bf16"][2]
+    products16 = product_yardsticks(
+        (L, D, A, H, E, V),
+        {f"{k}_192_bf16": v for k, v in times["decoder_step_192_bf16"]["busy_parts_ms"].items()},
+        {f"{k}_bf16": v for k, v in times["greedy_loop_bf16"]["busy_parts_ms"].items()},
+        int(torch.where(kl16[4], kl16[3] + 1, S + 1).max()), card, tag, la[-4].device)
     print(f"[time] {tag} bounds: step at N={B_BEAM} {step_bound:.4f} ms ({step_by}); "
           f"greedy loop at B={B}, V={V}, {steps_run} row-steps {loop_bound:.4f} ms "
           f"({loop_by})", flush=True)
@@ -2387,7 +2490,7 @@ def main_path_and_times(model, imgs, kc, train, card, tag, extra=None):
          "bound_ms": loop_bound, "bound_by": loop_by, "library_ms": None},
     ]
     return {"launches": launches, "times": times, "kernels": kernels,
-            "yardstick": yardstick,
+            "yardstick": yardstick, "bf16_products": products16,
             "bounds": dict(step_bound_ms=step_bound, step_bound_by=step_by,
                            loop_bound_ms=loop_bound, loop_bound_by=loop_by,
                            loop_rows_steps=steps_run)}
@@ -3488,6 +3591,7 @@ def main():
                   f"{what}: {k} fills 64 blocks")
     report["step_plan_grouped"] = KS.step_plan(B_BEAM, L, D, A, H, E, k=K_BEAM)
     attend_design("n64", report["step_plan_grouped"], B_BEAM, K_BEAM)
+    report["bf16_design"] = bf16_design("n64", L, D, A, H, E, V)
     ids = torch.from_numpy(np.random.default_rng(1).integers(
         1, cfg.vocab_size, size=B)).to(dev)
     e = TD.embed_tokens(params, ids, cfg).contiguous()
@@ -3532,6 +3636,8 @@ def main():
             got_n, err_n = check_grouped(f"n64 N={n} {label}", g_args, k, rel)
             if (k, label) == (K_BEAM, "f32"):
                 beam_step_args, beam_step_out, beam_step_err = g_args, got_n, err_n
+            if (k, label) == (K_BEAM, "bf16"):
+                beam_step_args16 = g_args
 
     # -- 4. greedy path -------------------------------------------------------------
     stamps["greedy"] = time.perf_counter()
@@ -3647,6 +3753,8 @@ def main():
                              "decoder_step_"),
         "decoder_step_192_plain": (lambda: KS.fused_decoder_step_plain(*beam_step_args),
                                    20, None),
+        "decoder_step_192_bf16": (lambda: KS.fused_decoder_step(*beam_step_args16), 20,
+                                  "decoder_step_"),
         "greedy_loop": (lambda: KL.greedy_loop(*loop_args, max_gen_length=S), 1,
                         "greedy_loop_"),
         "greedy_loop_plain": (lambda: KL.greedy_loop_plain(*loop_args, max_gen_length=S),
@@ -3681,12 +3789,13 @@ def main():
     phase_busy = {f"{ph}{label}": busy_of(dev_times["greedy_loop" + label], "greedy_loop_" + ph)
                   for label in ("", "_bf16") for ph in KL.PHASES}
     step_busy = {f"{k}{label}": busy_of(dev_times["decoder_step" + label], "decoder_step_" + k)
-                 for label in ("", "_bf16", "_192") for k in KS.KERNELS}
-    for label in ("", "_bf16", "_192"):
+                 for label in ("", "_bf16", "_192", "_192_bf16") for k in KS.KERNELS}
+    for label in ("", "_bf16", "_192", "_192_bf16"):
         attend_total(step_busy, label)
     for label in ("", "_bf16"):
         attend_total(phase_busy, label)
-    print(f"[time] step kernels (B={B}; _192: N={B_BEAM} over {B} images), busy device "
+    print(f"[time] step kernels (B={B}; _192: N={B_BEAM} over {B} images; _bf16 in "
+          "bfloat16), busy device "
           "time per call, "
           "torch.profiler: "
           + ", ".join(f"{k} {'not measured' if v is None else f'{v * 1e3:.1f} us'}"
@@ -3701,6 +3810,9 @@ def main():
           + ", ".join(f"{k} {'not measured' if v is None else f'{v:.3f} ms'}"
                       for k, v in phase_busy.items()), flush=True)
     yardstick = select_yardstick(loop_args, phase_busy, batch_steps, card, "n64")
+    batch_steps16 = int(torch.where(k16[4], k16[3] + 1, S + 1).max())
+    products16 = product_yardsticks((L, D, A, H, E, V), step_busy, phase_busy, batch_steps16,
+                                    card, "n64", dev)
     e2e = {}
     for k in ms:
         if k.startswith("beam_captioning_"):
@@ -3765,6 +3877,7 @@ def main():
                   kernel_launches_per_call={"decoder_step": len(KS.KERNELS),
                                             "greedy_loop": len(KL.PHASES) * (S + 1)},
                   loop_batch_steps=batch_steps, select_yardstick=yardstick,
+                  bf16_products=products16, loop_batch_steps_bf16=batch_steps16,
                   loop_rows_steps=steps_run,
                   captions=words[:8], finished=n_done, batch=B, max_gen_length=S)
 

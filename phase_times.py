@@ -12,16 +12,18 @@ synthetic words, a decoder drawn from seed 0, f32 and bf16: keys ending in
 decode (ms, the phases TREE's ``PHASES`` names, their ``total``, and the
 decode's CUDA-event ms, ``events``) and,
 where TREE has the phased step kernels, each step kernel's busy time per
-call at V 97 (us), both from torch.profiler (``chip_smoke.device_ms``), then
-each kernel instance's registers.  At L 196, D 2048 (resnet50 at
+call at V 97 (us), at B 64 and at beam search's N = 192 rows over the 64
+images (``step192_*``), both from torch.profiler (``chip_smoke.device_ms``),
+then each kernel instance's registers.  At L 196, D 2048 (resnet50 at
 encoder_size 14; seeded uniform annotations of 64 images, a decoder drawn
 from seed 0 at 4,096 words) it gives the loop's phases likewise (keys ending
 ``_l196``).  Beam search through the step kernels (``beam_search(...,
 fused=True)``, beamk 3, LN, S 20, B 64, f32), at n64 and at L 196, D 2048,
 gives its busy ms and CUDA-event ms per decode, each step kernel's busy
 ms per decode, and a hash of its tokens and raw scores, equal where two
-trees decode bit for bit alike (keys ``beam_*``): the API both trees
-share, whatever ``fused_decoder_step`` takes.  Last, at n64's widths and
+trees decode bit for bit alike (keys ``beam_*``), f32 and again in bf16
+(keys ending ``_bf16_n64`` and ``_bf16_l196``): the API both trees share,
+whatever ``fused_decoder_step`` takes.  Last, at n64's widths and
 4,096 and 60,000 synthetic words, it times the two greedy routes of
 ``decode.beam.greedy_decode`` end to end, the loop kernels
 (``fused="loop"``) and the step kernels with the vocabulary matmul
@@ -33,6 +35,7 @@ in turns (parent, change, change, parent) within one call to compare
 their phases on one card.
 """
 
+import copy
 import hashlib
 import json
 import os
@@ -91,6 +94,15 @@ def main():
                 out[f"step_{k}_{name}_us"] = us(CS.device_ms(step, "decoder_step_" + k,
                                                              calls=20))
             out[f"step_total_{name}_us"] = us(CS.device_ms(step, "decoder_step_", calls=20))
+            # beam search's call: N = 192 rows over the 64 images, k = 3
+            rep = lambda x: x.repeat_interleave(3, 0).contiguous()
+            ids3 = torch.arange(192, device="cuda") % (m.cfg.vocab_size - 4) + 1
+            e3 = TD.embed_tokens(m.decoder, ids3, m.cfg).contiguous()
+            gargs = (sargs[0], m.cfg, e3, rep(h), rep(c), an, ae)
+            times = CS.device_times(lambda: KS.fused_decoder_step(*gargs), calls=20)
+            for k in KS.KERNELS:
+                out[f"step192_{k}_{name}_us"] = us(CS.busy_of(times, "decoder_step_" + k))
+            out[f"step192_total_{name}_us"] = us(CS.busy_of(times, "decoder_step_"))
     from sat_tpu_torch.decode import beam as TB
     # the loop at L 196, D 2048, V 4096, and beam search through the step
     # kernels there and at n64
@@ -108,13 +120,18 @@ def main():
     out["total_float32_l196"] = CS.busy_of(times, "greedy_loop_")
     out["events_float32_l196"] = CS.cuda_ms(loop)
     n64_an = model.to(torch.float32).encode(imgs)
+    bf = torch.bfloat16
+    m16, big16 = copy.deepcopy(model).to(bf), copy.deepcopy(big).to(bf)
     for suffix, params, pcfg, an in (("n64", model.decoder, cfg, n64_an),
-                                     ("l196", big, big_cfg, big_an)):
+                                     ("l196", big, big_cfg, big_an),
+                                     ("bf16_n64", m16.decoder, cfg, m16.encode(imgs)),
+                                     ("bf16_l196", big16, big_cfg, big_an.to(bf))):
         run = lambda: TB.beam_search(params, pcfg, an, beamk=3, max_gen_length=20,
                                      rescore_method="LN", fused=True)
         res = run()
         out[f"beam_sha_{suffix}"] = hashlib.sha256(
-            res.tokens.cpu().numpy().tobytes() + res.raw_scores.cpu().numpy().tobytes()
+            res.tokens.cpu().numpy().tobytes()
+            + res.raw_scores.float().cpu().numpy().tobytes()
         ).hexdigest()[:16]
         times = CS.device_times(run, calls=3)
         out[f"beam_busy_{suffix}"] = CS.busy_of(times)

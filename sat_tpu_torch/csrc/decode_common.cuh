@@ -16,7 +16,6 @@ constexpr int NWARPS = NT / 32;
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
 
 __device__ __forceinline__ float ldf(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float ldf(const __nv_bfloat16* p) {

@@ -32,6 +32,26 @@
 // kernels/decoder_step.py::pack_loop_weights.  Values are rounded to T where
 // step_math rounds them (h', beta z, z for Wc).
 //
+// The bfloat16 instance (MmaTiles, Products<__nv_bfloat16>) multiplies on
+// the tensor cores: mma.sync m16n8k16, bf16 operands fed from the same
+// stages by ldmatrix.trans, float32 sums, as the TPU kernel's
+// jnp.dot(preferred_element_type=f32).  That makes the math nearly free
+// (1.8 GFLOP a step at N = 192 is 1.8 us of the H100's 989 TFLOP/s) and
+// leaves the bytes: each block streams its K rows of the weight tile and of
+// the 64-row tile of activations from L2 (9.3 MB of weights a step, the row
+// tile once per column block), and a kernel pays its launch and, per stage,
+// a wait on the copies and a barrier.  The tiles keep the f32 columns and
+// enough blocks (at least 64 of them at B = 64) to spread the streams over
+// the SMs, and take 256-row stages for hside and gates, which halve the
+// waits and barriers; on an H100 the launch, the copies, the MMA loop and
+// the epilogue of a product added up with little overlap (PERF.md).  Wider
+// tiles with K split over a thread-block cluster read fewer bytes but were
+// slower there: the cluster's barriers and its exchange of partial sums
+// through distributed shared memory cost more than the bytes saved.
+// mma.sync and not wgmma: the products are bound by those bytes and waits,
+// far below mma.sync's rate; wgmma waits for a measurement that shows the
+// MMA issue rate binding.
+//
 // Phase 2 reads the annotations, (B / k, L, D) for B rows, k rows to an
 // image (a beam's slots; 1 in the loop): 103 MB a step at L 196, D 2048,
 // B / k = 64 in f32, 31 us of the H100's 3.35 TB/s, the one large input of
@@ -64,7 +84,7 @@ template <typename T> constexpr int ATT_LC = 104 / (int)sizeof(T);
 constexpr int SC_RB = 4;        // scores: rows per pass over A
 constexpr int SC_J = 4;         // scores: terms a lane loads before evaluating them
 constexpr int SC_L = NWARPS;    // scores: L positions per block, one to a warp
-constexpr int P1_BN = 32, P1_KG = 2;  // hside: columns per block, K groups
+constexpr int P1_BN = 32, P1_KG = 2;  // float32 hside: columns per block, K groups
 constexpr int P3_BN = 16, P3_KG = 4;  // gates: 4 hidden units x 4 gates
 constexpr int P4_BN = 32, P4_KG = 2;  // deepout
 // The product kernels are declared __launch_bounds__(NT, 2): up to 128
@@ -111,19 +131,17 @@ __device__ __forceinline__ void ld4(float (&o)[4], const float* p) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
 }
-__device__ __forceinline__ void ld4(float (&o)[4], const unsigned short* p) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  o[0] = bf16_lo(v.x); o[1] = bf16_hi(v.x); o[2] = bf16_lo(v.y); o[3] = bf16_hi(v.y);
-}
 
 // Dynamic shared memory of one tile: two stages of the row tile (k-major)
 // and of the weight tile; once the products are done, each K group's f32
-// sums take the place of the stages (red()).
+// sums take the place of the stages (red()).  The float32 instance.
 template <typename T, int BN, int KG> struct Tiles {
   static constexpr int TX = BN / 4, TY = BM / 4;  // 4 x 4 register tiles
   static constexpr int NTH = TX * TY * KG;        // threads
   static constexpr int KPG = BK / KG;             // K rows per group and stage
   static constexpr int VE = 16 / (int)sizeof(T);  // elements per 16-byte copy
+  // columns, partial sums that tile_sum4 adds, stages, K rows a stage
+  static constexpr int NCOL = BN, NRED = KG, STAGES = 2, MMA = 0, KROWS = BK;
   typename Store<T>::type a[2][BK][BM];
   typename Store<T>::type w[2][BK][BN];
   __device__ float (*red())[BM][BN] { return reinterpret_cast<float(*)[BM][BN]>(a); }
@@ -134,10 +152,9 @@ template <typename T, int BN, int KG> struct Tiles {
   static_assert(sizeof(float) * KG * BM * BN <= sizeof(a), "the sums fit the stages");
 };
 
-template <typename T, int BN, int KG>
-__device__ __forceinline__ Tiles<T, BN, KG>& tiles() {
+template <typename TL> __device__ __forceinline__ TL& tiles() {
   extern __shared__ float4 smem_raw[];
-  return *reinterpret_cast<Tiles<T, BN, KG>*>(smem_raw);
+  return *reinterpret_cast<TL*>(smem_raw);
 }
 
 template <typename T, int BN, int KG>
@@ -208,12 +225,159 @@ __device__ __forceinline__ void gemm_tile(Tiles<T, BN, KG>& s, const T* __restri
   __syncthreads();
 }
 
+// -- the bfloat16 instance: tensor cores --
+// The same contract on bf16 operands: s.red()[g][m][n] holds float32 sums
+// for g < NRED = KG, and tile_sum4 adds them in order.  Warps are WM x WN x
+// KG: warp (wm, wn, g) takes rows wm BM / WM.., columns wn BN / WN.. of the
+// tile and, of each stage of SK rows, the k16 steps g SPG .. (g + 1) SPG -
+// 1, each an mma.sync m16n8k16 (bf16 operands, float32 sums) on operands
+// that ldmatrix.trans reads from the stages as they are laid out: the row
+// tile k-major (a[st][k][m], M contiguous) gives the row-major A fragment,
+// the weight tile (w[st][k][n], N contiguous) the .col B fragment.  The
+// 16-byte chunks of each stage row are stored XOR-swizzled by the row (swz),
+// so the eight rows one ldmatrix phase reads at one column lie in eight
+// different bank groups.  ST stages of SK rows, ST - 1 of them in flight.
+// Each output element is its row's own dot product in a fixed K order (the
+// order does not depend on N), so grouped rows equal copies bit for bit.
+template <int BN, int WM, int WN, int ST, int SK> struct MmaTiles {
+  static constexpr int KG = NWARPS / (WM * WN);       // K groups
+  static constexpr int MF = BM / WM / 16, NF = BN / WN / 8;  // m16 and n8 fragments a warp
+  static constexpr int SPG = SK / 16 / KG;            // k16 steps per group and stage
+  static constexpr int NCOL = BN, NRED = KG, STAGES = ST, MMA = 1, KROWS = SK;
+  unsigned short a[ST][SK][BM];
+  unsigned short w[ST][SK][BN];
+  __device__ float (*red())[BM][BN] { return reinterpret_cast<float(*)[BM][BN]>(a); }
+  __device__ const float (*red() const)[BM][BN] {
+    return reinterpret_cast<const float(*)[BM][BN]>(a);
+  }
+  static_assert(WM * WN * KG == NWARPS && SPG * 16 * KG == SK, "warps cover the tile and K");
+  static_assert(NF % 2 == 0, "ldmatrix.x4 loads two n8 fragments of B");
+  static_assert(sizeof(float) * KG * BM * BN <= sizeof(a) + sizeof(w), "the sums fit the stages");
+};
+
+// Where chunk c (16 bytes) of stage row k is stored, for rows of R chunks
+// (a power of two): c XOR bits of k that differ among eight adjacent rows'
+// positions, so those rows' chunk c fall in eight different bank groups.
+template <int R> __device__ __forceinline__ int swz(int k, int c) {
+  if constexpr (R >= 8) return c ^ (k & 7);
+  else if constexpr (R == 1) return c;
+  else return c ^ ((k / (8 / R)) & (R - 1));
+}
+
+template <int BN, int WM, int WN, int ST, int SK>
+__device__ __forceinline__ void stage_load(MmaTiles<BN, WM, WN, ST, SK>& s, int st,
+                                           const __nv_bfloat16* at, int lda,
+                                           const __nv_bfloat16* w, int ldw, int m0, int n0,
+                                           int kb, int k1) {
+  constexpr int AC = BM / 8, WC = BN / 8;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < SK * AC; i += NT) {
+    const int kr = i / AC, c = i % AC, k = kb + kr, m = m0 + c * 8;
+    const bool ok = k < k1 && m < lda;
+    cp_async16(&s.a[st][kr][swz<AC>(kr, c) * 8], ok ? at + (size_t)k * lda + m : at, ok);
+  }
+  for (int i = threadIdx.x; i < SK * WC; i += NT) {
+    const int kr = i / WC, c = i % WC, k = kb + kr, n = n0 + c * 8;
+    const bool ok = k < k1 && n < ldw;
+    cp_async16(&s.w[st][kr][swz<WC>(kr, c) * 8], ok ? w + (size_t)k * ldw + n : w, ok);
+  }
+  cp_async_commit();
+}
+
+__device__ __forceinline__ void ldsm4t(unsigned (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// d += a b: a 16 x 16 (row), b 16 x 8 (col), bf16; d 16 x 8 float32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// gemm_tile on bf16 operands (the contract above, see MmaTiles).
+template <int BN, int WM, int WN, int ST, int SK>
+__device__ __forceinline__ void gemm_tile(MmaTiles<BN, WM, WN, ST, SK>& s,
+                                          const __nv_bfloat16* __restrict__ at, int lda,
+                                          const __nv_bfloat16* __restrict__ w, int ldw, int m0,
+                                          int n0, int k0, int k1) {
+  using TL = MmaTiles<BN, WM, WN, ST, SK>;
+  constexpr int MF = TL::MF, NF = TL::NF, SPG = TL::SPG;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp % WM, wn = (warp / WM) % WN, g = warp / (WM * WN);
+  float acc[MF][NF][4];
+#pragma unroll
+  for (int i = 0; i < MF; ++i)
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+  const int nk = k1 > k0 ? (k1 - k0 + SK - 1) / SK : 0;
+#pragma unroll
+  for (int i = 0; i < ST - 1; ++i) {
+    if (i < nk) stage_load(s, i, at, lda, w, ldw, m0, n0, k0 + i * SK, k1);
+    else cp_async_commit();
+  }
+  // this lane's row of the ldmatrix.x4 operands: matrix lj, row li
+  const int lj = lane >> 3, li = lane & 7;
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<ST - 2>();
+    __syncthreads();  // stage kt has landed; every warp is done with stage kt - 1
+    const int nx = kt + ST - 1;
+    if (nx < nk) stage_load(s, nx % ST, at, lda, w, ldw, m0, n0, k0 + nx * SK, k1);
+    else cp_async_commit();
+    const int st = kt % ST;
+#pragma unroll
+    for (int q = 0; q < SPG; ++q) {
+      const int kb = (g * SPG + q) * 16;  // the step's first row in the stage
+      if (k0 + kt * SK + kb >= k1) continue;  // zero rows (the warp's choice is uniform)
+      unsigned af[MF][4], bq[NF][2];
+#pragma unroll
+      for (int i = 0; i < MF; ++i) {
+        // matrices: (k 0-7, m 0-7), (k 0-7, m 8-15), (k 8-15, m 0-7), (k 8-15, m 8-15)
+        const int kr = kb + (lj >> 1) * 8 + li, m = wm * (BM / WM) + i * 16 + (lj & 1) * 8;
+        ldsm4t(af[i], &s.a[st][kr][swz<BM / 8>(kr, m / 8) * 8]);
+      }
+#pragma unroll
+      for (int j = 0; j < NF; j += 2) {
+        // matrices: (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15)
+        const int kr = kb + (lj & 1) * 8 + li, n = wn * (BN / WN) + j * 8 + (lj >> 1) * 8;
+        unsigned r[4];
+        ldsm4t(r, &s.w[st][kr][swz<BN / 8>(kr, n / 8) * 8]);
+        bq[j][0] = r[0]; bq[j][1] = r[1]; bq[j + 1][0] = r[2]; bq[j + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < MF; ++i)
+#pragma unroll
+        for (int j = 0; j < NF; ++j) mma_bf16(acc[i][j], af[i], bq[j][0], bq[j][1]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // red() overwrites the stages
+  auto red = s.red();
+  const int gr = lane >> 2, tq = lane & 3;  // the accumulator's row and column pair
+#pragma unroll
+  for (int i = 0; i < MF; ++i)
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      const int m = wm * (BM / WM) + i * 16 + gr, n = wn * (BN / WN) + j * 8 + 2 * tq;
+      *reinterpret_cast<float2*>(&red[g][m][n]) = make_float2(acc[i][j][0], acc[i][j][1]);
+      *reinterpret_cast<float2*>(&red[g][m + 8][n]) = make_float2(acc[i][j][2], acc[i][j][3]);
+    }
+  __syncthreads();
+}
+
 // The sum over the K groups, in group order, of the tile's columns n..n+3 of row m.
-template <typename T, int BN, int KG>
-__device__ __forceinline__ float4 tile_sum4(const Tiles<T, BN, KG>& s, int m, int n) {
+template <typename TL>
+__device__ __forceinline__ float4 tile_sum4(const TL& s, int m, int n) {
   float4 v = *reinterpret_cast<const float4*>(&s.red()[0][m][n]);
 #pragma unroll
-  for (int g = 1; g < KG; ++g) {
+  for (int g = 1; g < TL::NRED; ++g) {
     const float4 u = *reinterpret_cast<const float4*>(&s.red()[g][m][n]);
     v.x += u.x; v.y += u.y; v.z += u.z; v.w += u.w;
   }
@@ -221,26 +385,43 @@ __device__ __forceinline__ float4 tile_sum4(const Tiles<T, BN, KG>& s, int m, in
 }
 
 // Writes the tile's f32 sums to out (rows < B, columns < N, row stride N).
-template <typename T, int BN, int KG>
-__device__ __forceinline__ void tile_store(const Tiles<T, BN, KG>& s, float* out, int B, int N,
-                                           int m0, int n0) {
-  for (int i = threadIdx.x; i < BM * BN / 4; i += Tiles<T, BN, KG>::NTH) {
+template <typename TL>
+__device__ __forceinline__ void tile_store(const TL& s, float* out, int B, int N, int m0,
+                                           int n0) {
+  constexpr int BN = TL::NCOL;
+  for (int i = threadIdx.x; i < BM * BN / 4; i += NT) {
     const int m = i / (BN / 4), n = (i % (BN / 4)) * 4;
     if (m0 + m < B && n0 + n < N)
       *reinterpret_cast<float4*>(out + (size_t)(m0 + m) * N + n0 + n) = tile_sum4(s, m, n);
   }
 }
 
+// The tile of each product, by input type: float32 on the FMA pipes as
+// above, bfloat16 on the tensor cores (MmaTiles<BN, WM, WN, ST, SK>).
+template <typename T> struct Products;
+template <> struct Products<float> {
+  using hside = Tiles<float, P1_BN, P1_KG>;
+  using gates = Tiles<float, P3_BN, P3_KG>;
+  using deepout = Tiles<float, P4_BN, P4_KG>;
+};
+template <> struct Products<__nv_bfloat16> {
+  using hside = MmaTiles<32, 2, 1, 2, 256>;
+  using gates = MmaTiles<16, 1, 1, 2, 256>;
+  using deepout = MmaTiles<32, 2, 1, 2, 128>;
+};
+
 // -- the phases ---------------------------------------------------------------------
-// Grids: hside (N1 / P1_BN, row tiles), scores (images, L / SC_L), attend
-// (images, D / ATT_SLICE, row chunks), gates (G / P3_BN, row tiles), deepout
-// (Ep / P4_BN, row tiles, splits); see plan5.
+// Grids: hside (N1 / BN, row tiles), scores (images, L / SC_L), attend
+// (images, D / ATT_SLICE, row chunks), gates (G / BN, row tiles), deepout
+// (Ep / BN, row tiles, splits), BN each product's tile's (Products); see
+// plan5.
 
 // 1. g1 = h [Wd | Wb | Whh]: att_dec, x_beta and the recurrent gate sums.
 template <typename T, typename Args>
 __device__ __forceinline__ void hside_body(const Args a) {
-  auto& s = tiles<T, P1_BN, P1_KG>();
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * P1_BN;
+  using TL = typename Products<T>::hside;
+  auto& s = tiles<TL>();
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * TL::NCOL;
   gemm_tile(s, a.yt, a.Bp, a.w1, a.N1, m0, n0, 0, a.H);
   tile_store(s, a.g1, a.B, a.N1, m0, n0);
 }
@@ -505,11 +686,13 @@ __device__ __forceinline__ void attend_body(const Args a, int k, const float* sc
 // input type); h_out, where given, receives h' in T (row-major, H wide).
 template <typename T, typename C, typename Args>
 __device__ __forceinline__ void gates_body(const Args a, const C* c_in, C* c_out, T* h_out) {
-  auto& s = tiles<T, P3_BN, P3_KG>();
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * P3_BN;
+  using TL = typename Products<T>::gates;
+  constexpr int BN = TL::NCOL;
+  auto& s = tiles<TL>();
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   gemm_tile(s, a.xt, a.Bp, a.wx, a.G, m0, n0, 0, a.E + a.D);
-  for (int i = threadIdx.x; i < BM * P3_BN / 4; i += Tiles<T, P3_BN, P3_KG>::NTH) {
-    const int m = i / (P3_BN / 4), q = (i % (P3_BN / 4)) * 4;
+  for (int i = threadIdx.x; i < BM * BN / 4; i += NT) {
+    const int m = i / (BN / 4), q = (i % (BN / 4)) * 4;
     const int row = m0 + m, u = (n0 + q) / 4;
     if (row >= a.B || u >= a.H) continue;
     const float4 x = tile_sum4(s, m, q);
@@ -531,8 +714,9 @@ __device__ __forceinline__ void gates_body(const Args a, const C* c_in, C* c_out
 // 4. part[z] = [h' | z] [Wh; Wc] over K rows [z kc, (z+1) kc).
 template <typename T, typename Args>
 __device__ __forceinline__ void deepout_body(const Args a) {
-  auto& s = tiles<T, P4_BN, P4_KG>();
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * P4_BN;
+  using TL = typename Products<T>::deepout;
+  auto& s = tiles<TL>();
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * TL::NCOL;
   const int k0 = min(a.K4, (int)blockIdx.z * a.kc), k1 = min(a.K4, k0 + a.kc);
   gemm_tile(s, a.yt, a.Bp, a.wo, a.Ep, m0, n0, k0, k1);
   tile_store(s, a.part + (size_t)blockIdx.z * a.B * a.Ep, a.B, a.Ep, m0, n0);
@@ -545,19 +729,30 @@ __device__ __forceinline__ void deepout_body(const Args a) {
 // B rows, k to an image.
 template <typename T>
 void plan5(int B, int k, int L, int D, int N1, int G, int Ep, int splits, int (&p)[5][6]) {
+  using P1 = typename Products<T>::hside;
+  using P3 = typename Products<T>::gates;
+  using P4 = typename Products<T>::deepout;
   const int rt = (B + BM - 1) / BM, imgs = B / k, kb = attend_rows(k);
   const int rows[5][6] = {
-      {(N1 + P1_BN - 1) / P1_BN, rt, 1, NT, (int)sizeof(Tiles<T, P1_BN, P1_KG>), 0},
+      {(N1 + P1::NCOL - 1) / P1::NCOL, rt, 1, NT, (int)sizeof(P1), 0},
       {imgs, (L + SC_L - 1) / SC_L, 1, NT, 0, 0},
       {imgs, (D + ATT_SLICE - 1) / ATT_SLICE, (k + kb - 1) / kb, ATT_SLICE,
        attend_smem<T>(kb), 0},
-      {(G + P3_BN - 1) / P3_BN, rt, 1, NT, (int)sizeof(Tiles<T, P3_BN, P3_KG>), 0},
-      {(Ep + P4_BN - 1) / P4_BN, rt, splits, NT, (int)sizeof(Tiles<T, P4_BN, P4_KG>), 0}};
+      {(G + P3::NCOL - 1) / P3::NCOL, rt, 1, NT, (int)sizeof(P3), 0},
+      {(Ep + P4::NCOL - 1) / P4::NCOL, rt, splits, NT, (int)sizeof(P4), 0}};
   for (int i = 0; i < 5; ++i)
     for (int j = 0; j < 6; ++j) p[i][j] = rows[i][j];
 }
 
 inline dim3 grid(const int (&p)[6]) { return dim3(p[0], p[1], p[2]); }
+
+// A product's tile, as the [design] lines print it: columns, K rows per
+// stage, stages, K groups (warps or threads splitting each stage's rows), 1
+// for tensor cores (0: FMA).
+template <typename TL> void tile_design(int* o) {
+  const int d[5] = {TL::NCOL, TL::KROWS, TL::STAGES, TL::NRED, TL::MMA};
+  for (int i = 0; i < 5; ++i) o[i] = d[i];
+}
 
 constexpr int MAX_DEVICES = 64;
 

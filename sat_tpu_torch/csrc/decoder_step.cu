@@ -250,3 +250,20 @@ extern "C" int sat_decoder_step_plan(int dtype, int B, int k, int L, int D, int 
     for (int j = 0; j < 6; ++j) out[6 * i + j] = p[i][j];
   return cudaSuccess;
 }
+
+// The tiles of the step's products (hside, gates, deepout) for dtype: out[5
+// i + j] is product i's columns, K rows per stage, stages, K groups, and 1
+// where it runs on tensor cores.
+extern "C" int sat_decoder_step_tiles(int dtype, int* out) {
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  if (dtype == 0) {
+    sat::tile_design<sat::Products<float>::hside>(out);
+    sat::tile_design<sat::Products<float>::gates>(out + 5);
+    sat::tile_design<sat::Products<float>::deepout>(out + 10);
+  } else {
+    sat::tile_design<sat::Products<__nv_bfloat16>::hside>(out);
+    sat::tile_design<sat::Products<__nv_bfloat16>::gates>(out + 5);
+    sat::tile_design<sat::Products<__nv_bfloat16>::deepout>(out + 10);
+  }
+  return cudaSuccess;
+}

@@ -29,7 +29,8 @@
 // blocks share the work (256 at V 4096; 16 columns measured faster than 32
 // at V 97 and no slower at 4096), so the product's bound is its f32 FMAs,
 // about 2 us a step at 67 TFLOP/s (an H100 measured about 8.5 us: latency
-// bounds it, as it does the other products, PERF.md).  Nothing V-wide is
+// bounds it, as it does the other products, PERF.md).  In bf16 the product
+// runs on the tensor cores (LogitsTile, decode_phases.cuh).  Nothing V-wide is
 // held per row, so shared memory does not bound V.  Wout is packed to (E, pad8(V)) with zero columns
 // (kernels/decoder_step.py::pack_vocab_weights), so its rows are whole
 // 16-byte copies; columns >= V take no part.  The loop keeps c in float and
@@ -43,6 +44,11 @@
 namespace sat {
 
 constexpr int SEL_BN = 16, SEL_KG = 4;  // logits: vocabulary columns per block, K groups
+
+// The logits' tile by input type: float32 FMAs, or bf16 on the tensor cores
+// (decode_phases.cuh), SEL_BN columns either way.
+template <typename T> struct LogitsTile { using type = Tiles<float, SEL_BN, SEL_KG>; };
+template <> struct LogitsTile<__nv_bfloat16> { using type = MmaTiles<SEL_BN, 2, 1, 2, 128>; };
 
 // One row's partial of the selection over one tile of SEL_BN columns.
 struct alignas(16) TilePart {
@@ -146,7 +152,7 @@ __global__ void __launch_bounds__(NT, 2) greedy_loop_logits(LoopArgs<T> a, int t
   if (*a.done == a.B) return;
   constexpr int TPR = NT / BM, CPT = SEL_BN / TPR;
   static_assert(CPT % 4 == 0, "a thread takes whole float4 columns of the tile");
-  auto& s = tiles<T, SEL_BN, SEL_KG>();
+  auto& s = tiles<typename LogitsTile<T>::type>();
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * SEL_BN;
   gemm_tile(s, a.tt, a.Bp, a.wout, a.Vp, m0, n0, 0, a.E);
   const int m = threadIdx.x / TPR, c0 = n0 + (threadIdx.x % TPR) * CPT;
@@ -256,7 +262,7 @@ void plan(int B, int L, int D, int E, int V, int N1, int G, int Ep, int splits,
   const int rt = (B + BM - 1) / BM;
   const int sel[3][6] = {
       {(B * E + NT - 1) / NT, 1, 1, NT, 0, 0},
-      {vocab_tiles(V), rt, 1, NT, (int)sizeof(Tiles<T, SEL_BN, SEL_KG>), 0},
+      {vocab_tiles(V), rt, 1, NT, (int)sizeof(typename LogitsTile<T>::type), 0},
       {(B + NWARPS - 1) / NWARPS, 1, 1, NT, 0, 0}};
   for (int j = 0; j < 6; ++j) {
     for (int i = 0; i < 5; ++i) p[i][j] = p5[i][j];
@@ -385,5 +391,23 @@ extern "C" int sat_greedy_loop_plan(int dtype, int B, int L, int D, int E, int V
     return cudaErrorInvalidValue;
   for (int i = 0; i < sat::NPHASES; ++i)
     for (int j = 0; j < 6; ++j) out[6 * i + j] = p[i][j];
+  return cudaSuccess;
+}
+
+// The tiles of the loop's products (hside, gates, deepout, logits) for
+// dtype: out[5 i + j] as sat_decoder_step_tiles gives them.
+extern "C" int sat_greedy_loop_tiles(int dtype, int* out) {
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  if (dtype == 0) {
+    sat::tile_design<sat::Products<float>::hside>(out);
+    sat::tile_design<sat::Products<float>::gates>(out + 5);
+    sat::tile_design<sat::Products<float>::deepout>(out + 10);
+    sat::tile_design<sat::LogitsTile<float>::type>(out + 15);
+  } else {
+    sat::tile_design<sat::Products<__nv_bfloat16>::hside>(out);
+    sat::tile_design<sat::Products<__nv_bfloat16>::gates>(out + 5);
+    sat::tile_design<sat::Products<__nv_bfloat16>::deepout>(out + 10);
+    sat::tile_design<sat::LogitsTile<__nv_bfloat16>::type>(out + 15);
+  }
   return cudaSuccess;
 }

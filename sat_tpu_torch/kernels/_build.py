@@ -8,7 +8,8 @@ with a plain C interface::
 
 into ``sat_tpu_torch/build/``, named by a hash of the sources and flags, and
 loaded with ``ctypes``.  Each library exports an entry ``sat_<name>`` and
-its launch plan ``sat_<name>_plan``, whose C signatures ``ARGTYPES`` declares:
+its launch plan ``sat_<name>_plan`` and its products' tiles
+``sat_<name>_tiles``, whose C signatures ``ARGTYPES`` declares:
 the wrappers pass ``data_ptr()`` values and the current stream as pointers.
 Every entry returns a ``cudaError_t`` and ``check`` raises on a nonzero
 code."""
@@ -41,6 +42,8 @@ ARGTYPES = {
         "sat_decoder_step": [_I] + [_P] * 21 + [_I] * 15 + [_P],
         # dtype, B, k, L, D, H, E, N1, G, Ep, splits; out (42 ints)
         "sat_decoder_step_plan": [_I] * 11 + [ctypes.POINTER(_I)],
+        # dtype; out (15 ints)
+        "sat_decoder_step_tiles": [_I, ctypes.POINTER(_I)],
     },
     "greedy_loop": {
         # dtype; annot, att_enc, w1, wx, wo, wf, bb, bias, emb, wout, bout,
@@ -50,6 +53,8 @@ ARGTYPES = {
         "sat_greedy_loop": [_I] + [_P] * 25 + [_I] * 17 + [_F] + [_I] * 4 + [_P],
         # dtype, B, L, D, E, V, N1, G, Ep, splits; out (48 ints)
         "sat_greedy_loop_plan": [_I] * 10 + [ctypes.POINTER(_I)],
+        # dtype; out (20 ints)
+        "sat_greedy_loop_tiles": [_I, ctypes.POINTER(_I)],
     },
 }
 

@@ -50,6 +50,22 @@ KERNELS = ("in", "hside", "scores", "attend", "gates", "deepout", "out")
 # phase 4 splits its K rows into this many slices; the caller sums their
 # partial products in slice order
 DEEPOUT_SPLITS = 16
+# the tiled products of a step (csrc/decode_phases.cuh) and the fields of
+# their tiles (``tile_design``): columns, K rows per stage, stages, K
+# groups, 1 where they run on tensor cores
+PRODUCTS = ("hside", "gates", "deepout")
+TILE_FIELDS = ("bn", "bk", "stages", "groups", "mma")
+# The bfloat16 products' tiles (``Products<__nv_bfloat16>``), which fix the
+# order of their float32 sums over K rows [k0, k1): each of ``groups`` K
+# groups takes, of each stage of ``bk`` rows, its share of 16-row chunks in
+# order, and the groups are added in order.  ``chip_smoke.py`` holds them to
+# the built library's ``tile_design``; ``tests/test_torch_loop_layout.py``
+# sums in this order on the CPU.
+BF16_TILES = {
+    "hside": dict(bn=32, bk=256, stages=2, groups=4, mma=1),
+    "gates": dict(bn=16, bk=256, stages=2, groups=8, mma=1),
+    "deepout": dict(bn=32, bk=128, stages=2, groups=4, mma=1),
+}
 
 
 class FusedWeights(NamedTuple):
@@ -304,6 +320,19 @@ def step_plan(B: int, L: int, D: int, A: int, H: int, E: int,
     return {name: (tuple(out[6 * i:6 * i + 3]), out[6 * i + 3],
                    out[6 * i + 4], out[6 * i + 5])
             for i, name in enumerate(KERNELS)}
+
+
+def tile_design(dtype: torch.dtype = torch.float32):
+    """The tiles of the step's products (``PRODUCTS``) in ``dtype``, as the
+    C side builds them: {product: {field of ``TILE_FIELDS``: value}}.
+    Needs the built library."""
+    lib = _build.load("decoder_step")
+    n = len(TILE_FIELDS)
+    out = (ctypes.c_int * (n * len(PRODUCTS)))()
+    _build.check(lib, lib.sat_decoder_step_tiles(_DTYPES[dtype], out),
+                 "decoder_step tiles")
+    return {name: dict(zip(TILE_FIELDS, out[n * i:n * i + n]))
+            for i, name in enumerate(PRODUCTS)}
 
 
 def fused_decoder_step(lw: LoopWeights, cfg: SATConfig,

@@ -50,8 +50,8 @@ import torch
 from ..config import SATConfig
 from ..models.decoder import capped_embedding
 from . import _build
-from .decoder_step import (DEEPOUT_SPLITS, _DTYPES, FusedWeights,
-                           LoopWeights, _check, _check_shapes,
+from .decoder_step import (BF16_TILES, DEEPOUT_SPLITS, TILE_FIELDS, _DTYPES,
+                           FusedWeights, LoopWeights, _check, _check_shapes,
                            check_loop_weights, deepout_rows,
                            fused_step_supported, pack_vocab_weights, pad8,
                            ptrs, step_math, step_weights, stream_ptr,
@@ -65,6 +65,12 @@ NEG_INF = -1e9
 PHASES = ("hside", "scores", "attend", "gates", "deepout", "tproj", "logits",
           "select")
 VOCAB_TILE = 16        # SEL_BN in csrc/greedy_loop.cu: columns per logits block
+# the loop's tiled products: the step's, then the vocabulary product
+PRODUCTS = ("hside", "gates", "deepout", "logits")
+# their bfloat16 tiles (``decoder_step.BF16_TILES``; ``LogitsTile`` in
+# csrc/greedy_loop.cu)
+BF16_TILES = dict(BF16_TILES, logits=dict(bn=VOCAB_TILE, bk=128, stages=2, groups=4,
+                                          mma=1))
 
 
 def vocab_tiles(V: int) -> int:
@@ -243,6 +249,19 @@ def loop_plan(B: int, L: int, D: int, A: int, H: int, E: int, V: int,
     return {name: (tuple(out[6 * i:6 * i + 3]), out[6 * i + 3],
                    out[6 * i + 4], out[6 * i + 5])
             for i, name in enumerate(PHASES)}
+
+
+def tile_design(dtype: torch.dtype = torch.float32):
+    """The tiles of the loop's products (``PRODUCTS``) in ``dtype``, as the
+    C side builds them (``decoder_step.tile_design``'s fields).  Needs the
+    built library."""
+    lib = _build.load("greedy_loop")
+    n = len(TILE_FIELDS)
+    out = (ctypes.c_int * (n * len(PRODUCTS)))()
+    _build.check(lib, lib.sat_greedy_loop_tiles(_DTYPES[dtype], out),
+                 "greedy_loop tiles")
+    return {name: dict(zip(TILE_FIELDS, out[n * i:n * i + n]))
+            for i, name in enumerate(PRODUCTS)}
 
 
 def greedy_loop(fw: LoopWeights, emb: torch.Tensor, wout: torch.Tensor,

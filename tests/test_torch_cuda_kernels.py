@@ -282,6 +282,49 @@ def test_loop_kernel_repeats_bit_for_bit(dtype):
         assert torch.equal(x, y)
 
 
+# the (L, D) of chip_smoke.py phases 13-15 at E 256, A 128, H 512: resnet50 at
+# encoder_size 14, mobilenet_v3_small, densenet121, squeezenet1_1
+PHASE_WIDTHS = [(196, 2048), (49, 576), (49, 1024), (169, 512)]
+
+
+@pytest.mark.parametrize("L,D", PHASE_WIDTHS)
+def test_bf16_step_at_phase_widths(L, D):
+    """The bf16 step (its products on the tensor cores) as beam search calls
+    it, N = 192 rows over 64 images (k = 3), at each configuration of
+    chip_smoke.py phases 13-15: each output within 1e-2 of its scale of the
+    plain version (one rounding step of bf16 outputs), and a second call
+    bit for bit (no float atomics)."""
+    lw, cfg, e, h, c, a, att_enc = _grouped_step_args(3, L, D, torch.bfloat16, images=64)
+    got = KS.fused_decoder_step(lw, cfg, e, h, c, a, att_enc)
+    again = KS.fused_decoder_step(lw, cfg, e, h, c, a, att_enc)
+    ref = KS.fused_decoder_step_plain(lw, cfg, e, h, c, a, att_enc)
+    torch.cuda.synchronize()
+    for name, x, y, r in zip(("t", "h'", "c'", "z", "alpha"), got, again, ref):
+        assert torch.equal(x, y), name
+        scale = max(1.0, r.float().abs().max().item())
+        assert (x.float() - r.float()).abs().max().item() <= 1e-2 * scale, name
+
+
+@pytest.mark.parametrize("L,D", PHASE_WIDTHS)
+def test_bf16_loop_at_phase_widths(L, D):
+    """The bf16 loop at the reference's 4,096 words and B 64, at each
+    configuration of chip_smoke.py phases 13-15, against its plain version
+    as ``chip_smoke.check_loop`` holds it: tokens and lengths equal on >=
+    90 % of rows (one rounding of a near tie changes a row's path), scores
+    and alphas within 1e-1 on those rows; a second call bit for bit."""
+    args = _loop_args((256, D, 128, 512, 4096, L, 64), torch.bfloat16)
+    first = KL.greedy_loop(*args, max_gen_length=20)
+    second = KL.greedy_loop(*args, max_gen_length=20)
+    ref = KL.greedy_loop_plain(*args, max_gen_length=20)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+    same = (first[0] == ref[0]).all(-1) & (first[3] == ref[3]) & (first[4] == ref[4])
+    assert same.float().mean().item() >= 0.9
+    assert (first[2] - ref[2])[same].abs().max().item() <= 1e-1
+    assert (first[1] - ref[1])[same].abs().max().item() <= 1e-1
+
+
 def test_loop_kernel_stops_once_every_row_finished():
     """Every row emits END at step 1: the device count of finished rows
     reaches B, the kernels of the later steps return at once, and those steps

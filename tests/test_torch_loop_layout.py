@@ -4,14 +4,17 @@ held on the CPU against the step it must compute.
 ``layout_step`` follows the layout phase by phase as ``csrc/decode_phases.cuh``
 indexes it: the phase-1 product and its column ranges, the gate-interleaved
 phase-3 product with the LSTM cell on columns 4u..4u+3, and phase 4's split-K
-partial products summed in slice order.  It is held against ``step_math`` on
-the ``FusedWeights`` the layout was packed from.  Tolerances, of each
-output's scale (its largest magnitude): float32 1e-5, because the sums are
-taken in another order; bfloat16 2^-7, one bfloat16 step, because the values
-are rounded to bfloat16 at the same points, and two float32 sums taken in
-another order that straddle a rounding boundary round one step apart (one
-such element at n64 here).  Unpacking the layout gives back
-``pack_fused_weights``' tensors bit for bit."""
+partial products summed in slice order.  In bfloat16 each product sums in
+the tensor-core kernels' K order (``kernel_product``: bf16 operands, float32
+sums of 16-row chunks within each K group, the groups in order;
+``kernels/decoder_step.py::BF16_TILES``).  It is held
+against ``step_math`` on the ``FusedWeights`` the layout was packed from.
+Tolerances, of each output's scale (its largest magnitude): float32 1e-5,
+because the sums are taken in another order; bfloat16 2^-7, one bfloat16
+step, because the values are rounded to bfloat16 at the same points, and
+two float32 sums taken in another order that straddle a rounding boundary
+round one step apart (one such element at n64 here).  Unpacking the layout
+gives back ``pack_fused_weights``' tensors bit for bit."""
 
 import numpy as np
 import pytest
@@ -63,17 +66,61 @@ def inputs(rng, cfg, B, L, dtype):
     return n(B, E).to(dtype), torch.tanh(n(B, H)).to(dtype), n(B, H), a, att_enc
 
 
+def k_chunks(k0: int, k1: int, tile: dict):
+    """The order in which a bfloat16 product sums its K rows [k0, k1): for
+    each of its K groups (``tile["groups"]``), the group's 16-row chunks
+    (c0, c1): of each stage of ``tile["bk"]`` rows, the group takes bk /
+    (16 groups) chunks in order (``csrc/decode_phases.cuh``, the bf16
+    ``gemm_tile``)."""
+    bk, kg = tile["bk"], tile["groups"]
+    spg = bk // 16 // kg
+    groups = []
+    for g in range(kg):
+        chunks = []
+        for st in range(k0, k1, bk):
+            for q in range(spg):
+                c0 = st + (g * spg + q) * 16
+                if c0 < k1:
+                    chunks.append((c0, min(k1, c0 + 16)))
+        groups.append(chunks)
+    return groups
+
+
+def kernel_product(x, w, tile: dict, k0: int = 0, k1=None):
+    """x[:, k0:k1] @ w[k0:k1] in float32 as the bf16 kernels sum it
+    (``k_chunks``): each chunk's product, the chunks of a K group in
+    order, then the groups in order."""
+    k1 = w.shape[0] if k1 is None else k1
+    x, w = x.float(), w.float()
+    total = None
+    for chunks in k_chunks(k0, k1, tile):
+        acc = torch.zeros(x.shape[0], w.shape[1])
+        for c0, c1 in chunks:
+            acc = acc + x[:, c0:c1] @ w[c0:c1]
+        total = acc if total is None else total + acc
+    return total
+
+
 def layout_step(lw: KS.LoopWeights, deep: bool, dt, e, h, c, annotations,
                 att_enc):
     """One step from the packed tensors, phase by phase as the kernels index
-    them.  Returns float32 (gates in FusedWeights column order, h', c', t
-    rounded to dt)."""
+    them, each product in bfloat16 in the kernels' K order
+    (``kernel_product``).  Returns float32 (gates in FusedWeights column
+    order, h', c', t rounded to dt)."""
     rnd = lambda x: x.to(dt).float()
+    bf16 = dt == torch.bfloat16
     H, A, D = lw.w1.shape[0], lw.wf.shape[0], lw.bb.shape[0]
     E, B, L = lw.wx.shape[0] - D, e.shape[0], annotations.shape[1]
     e, h = e.float(), h.float()
+
+    def product(name, x, w, k0=0, k1=None):
+        if bf16:
+            return kernel_product(x, w, KS.BF16_TILES[name], k0, k1)
+        k1 = w.shape[0] if k1 is None else k1
+        return x[:, k0:k1] @ w[k0:k1].float()
+
     # 1. hside: g1 = h w1; columns [0, A) att_dec, [A, A+D) x_beta, then g_h
-    g1 = h @ lw.w1.float()
+    g1 = product("hside", h, lw.w1)
     att_dec, x_beta, g_h = g1[:, :A], g1[:, A:A + D], g1[:, A + D:A + D + 4 * H]
     # 2. attend
     s = torch.tanh(att_enc.float() + att_dec[:, None, :])
@@ -81,7 +128,7 @@ def layout_step(lw: KS.LoopWeights, deep: bool, dt, e, h, c, annotations,
     z = torch.einsum("bl,bld->bd", alpha, annotations.float())
     beta_z = rnd(torch.sigmoid(x_beta + lw.bb) * z)
     # 3. gates: [e | beta z] wx + g_h + bias, column 4u + q = gate q of unit u
-    gates = (torch.cat([e, beta_z], 1) @ lw.wx.float())[:, :4 * H] + g_h + lw.bias[:4 * H]
+    gates = product("gates", torch.cat([e, beta_z], 1), lw.wx)[:, :4 * H] + g_h + lw.bias[:4 * H]
     i, f, g, o = gates.view(B, H, 4).unbind(-1)
     c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     h_new = rnd(torch.sigmoid(o) * torch.tanh(c_new))
@@ -93,7 +140,7 @@ def layout_step(lw: KS.LoopWeights, deep: bool, dt, e, h, c, annotations,
     for sl in range(KS.DEEPOUT_SPLITS):
         k0 = min(K, sl * kc)
         k1 = min(K, k0 + kc)
-        acc = acc + y[:, k0:k1] @ lw.wo[k0:k1].float()
+        acc = acc + product("deepout", y, lw.wo, k0, k1)
     t = acc[:, :E]
     if deep:
         t = torch.tanh(e + t)
@@ -128,6 +175,64 @@ def test_layout_step_matches_step_math(widths, dtype, deep):
         scale = b.abs().max().item()
         err = (a - b).abs().max().item()
         assert err <= rel * scale, f"{name}: {err} > {rel} * {scale}"
+
+
+def product_shapes(E, D, A, H, V):
+    """(K, N, the K ranges summed) of each tiled product at these widths: the
+    packed weights' rows and columns, deepout's ``DEEPOUT_SPLITS`` slices."""
+    K4, kc = KS.deepout_rows(H, D, True)
+    slices = [(min(K4, s * kc), min(K4, s * kc + kc)) for s in range(KS.DEEPOUT_SPLITS)]
+    return {"hside": (H, KS.pad8(A + D + 4 * H), [(0, H)]),
+            "gates": (E + D, KS.pad8(4 * H), [(0, E + D)]),
+            "deepout": (H + D, KS.pad8(E), slices),
+            "logits": (E, KS.pad8(V), [(0, E)])}
+
+
+@pytest.mark.parametrize("widths", WIDTHS)
+@pytest.mark.parametrize("name", KL.PRODUCTS)
+def test_bf16_products_in_kernel_order(widths, name):
+    """Each bf16 product's K order (``k_chunks``) takes every row of its K
+    range once, in 16-row chunks that start a multiple of 16 rows into
+    their stage; summed in that order (``kernel_product``) it is the
+    product within 1e-5 of its scale (float32 sums in another order than
+    float64's)."""
+    E, D, A, H, V, L, B = widths
+    K, N, ranges = product_shapes(E, D, A, H, V)[name]
+    tile = KL.BF16_TILES[name]
+    rng = np.random.default_rng(K + N)
+    x = torch.from_numpy(rng.normal(size=(B, K)).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(rng.normal(size=(K, N)).astype(np.float32)).to(torch.bfloat16)
+    for k0, k1 in ranges:
+        groups = k_chunks(k0, k1, tile)
+        assert len(groups) == tile["groups"]
+        chunks = sorted(c for g in groups for c in g)
+        assert all(c1 - c0 <= 16 and (c0 - k0) % tile["bk"] % 16 == 0 for c0, c1 in chunks)
+        assert [r for c0, c1 in chunks for r in range(c0, c1)] == list(range(k0, k1))
+        got = kernel_product(x, w, tile, k0, k1)
+        want = x[:, k0:k1].double() @ w[k0:k1].double()
+        scale = max(1.0, want.abs().max().item())
+        assert (got.double() - want).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("V", [97, 4096, 4099])
+def test_bf16_logits_in_kernel_order_select_as_the_scan(V):
+    """The loop's vocabulary product in bf16 as the tensor-core kernel sums
+    it (``kernel_product`` on the logits tile, Wout packed to pad8(V)), then
+    its tile partials and their combine (``tile_select``), against
+    ``scan_select`` on the float64 product: the same tokens, and
+    log-probabilities within 1e-5 of their scale."""
+    cfg, params, rng = make(256, 1024, 128, 512, V)
+    _, _, wout, bout = KL.loop_weights(params, cfg, torch.bfloat16)
+    t = torch.tanh(torch.from_numpy(rng.normal(size=(64, 256)).astype(np.float32)))
+    t = t.to(torch.bfloat16)
+    got = kernel_product(t, wout, KL.BF16_TILES["logits"])[:, :V] + bout
+    want = (t.double() @ wout[:, :V].double() + bout.double()).float()
+    masked = KL.selection_masks(cfg)[1]
+    want_tok, want_lp = KL.scan_select(want, 1.0, masked)
+    got_tok, got_lp = KL.tile_select(got, 1.0, masked)
+    assert torch.equal(got_tok, want_tok)
+    scale = want_lp.abs().max().item()
+    assert (got_lp - want_lp).abs().max().item() <= 1e-5 * scale
 
 
 @pytest.mark.parametrize("widths", WIDTHS)
